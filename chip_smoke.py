@@ -22,16 +22,15 @@ failure raises and exits non-zero):
    (hash 16 levels x 2 features x 2^19 with bf16 reads, SDF MLP
    [.,64,16], radiance MLP [.,64,64,3], 8192 rays, 128 samples
    compacted to 32, occupancy 64^3, 20 march steps) on 128x128 images,
-   with the step count cut to ``--init_steps`` (default 100). Launch
-   counts are zeroed just before and read just after; losses must be
-   finite and the rgb loss must fall.
+   with the step count cut to ``INIT_STEPS``. Launch counts are zeroed
+   just before and read just after; losses must be finite and the rgb
+   loss must fall.
 
 The last lines of stdout are the card's name and power limit, the
 kernels' JSON line and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
-import argparse
 import concurrent.futures
 import json
 import math
@@ -53,6 +52,8 @@ FULL_WIDTH_ARGS = [
     "--Renderer.rand_rays=8192",
     "--data.image_size=[128,128]",
 ]
+# the config's optim.init.max_iter of 500, cut so the run fits the time limit
+INIT_STEPS = 100
 
 TINY_ARGS = [
     "--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
@@ -273,7 +274,7 @@ def _init_var(var):
 
 # --------------------------------------------------------------------------- init
 
-def phase_init(steps):
+def phase_init():
     """The main path: two-view init at full width. Returns launch counts."""
     import numpy as np
     import torch
@@ -282,6 +283,7 @@ def phase_init(steps):
     from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
     from level_s2fm_tpu_torch.train import build_var
 
+    steps = INIT_STEPS
     opt = build_options(FULL_WIDTH_ARGS + [f"--optim.init.max_iter={steps}"])
     model = LevelSfM(opt, seed=int(opt.seed), device="cuda")
     model.load_data(build_var(opt))
@@ -324,6 +326,8 @@ def phase_init(steps):
     step_ms = (time.perf_counter() - t1) / k_steps * 1e3
 
     prof = _profile_steps(init.phase, state, batch, gen)
+    prof["device_busy_share_of_steady_step"] = (
+        prof["device_busy_ms_per_step"] / step_ms)
     split = _layer_split(model, state, batch)
 
     summary = {
@@ -404,9 +408,13 @@ def _layer_split(model, state, batch, n=5):
 
 
 def _profile_steps(phase, state, batch, gen, n=3):
-    """Device busy share and the top device-time ops over ``n`` steady
-    steps (torch.profiler / CUPTI)."""
+    """Device busy time and the top ops by device time over ``n`` steady
+    steps (torch.profiler / CUPTI). Busy time is the union of the
+    intervals of the device's own events (kernels, copies, fills). An op's
+    device time is the self device time of a host-side op: each kernel
+    counts once, under the op that launched it."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def dev_self(e):
@@ -420,22 +428,29 @@ def _profile_steps(phase, state, batch, gen, n=3):
             phase.step(state, batch, gen)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if dev_self(e) > 0]
-    busy_us = sum(dev_self(e) for e in events)
-    top = sorted(events, key=dev_self, reverse=True)[:15]
-    return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    assert spans, "the profiler saw no device event"
+    busy_us, kernel_us, reach = 0.0, 0.0, -math.inf
+    for start, end in spans:
+        kernel_us += end - start
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and dev_self(e) > 0]
+    top = sorted(ops, key=dev_self, reverse=True)[:15]
+    return {"steps": n, "wall_ms_per_step_profiled": wall_us / n / 1e3,
             "device_busy_ms_per_step": busy_us / n / 1e3,
-            "device_busy_share": busy_us / wall_us,
-            "top_device_ms_per_step": {e.key[:60]: dev_self(e) / n / 1e3 for e in top}}
+            "device_event_ms_per_step": kernel_us / n / 1e3,
+            "ops_device_ms_per_step": sum(map(dev_self, ops)) / n / 1e3,
+            "top_op_device_ms_per_step": {e.key[:60]: dev_self(e) / n / 1e3
+                                          for e in top}}
 
 
 # --------------------------------------------------------------------------- main
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--init_steps", type=int, default=100)
-    args = ap.parse_args(argv)
-
+def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -456,7 +471,7 @@ def main(argv=None):
     # 2048 -> two calls of R = 2 x 2048 rays, K = compact_samples = 32
     recs = phase_kernels(main_shape=(4096, 32))
     phase_reference()
-    launches = phase_init(args.init_steps)
+    launches = phase_init()
     recs[0]["launches"] = launches["fwd"]
     recs[1]["launches"] = launches["bwd"]
     log(f"[done] {time.time() - t_start:.1f} s")

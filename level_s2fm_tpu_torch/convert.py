@@ -8,13 +8,16 @@ The port keeps the JAX pytree's layout as nested dicts of tensors:
 
 ``params_from_jax`` takes that tree with numpy arrays at the leaves (e.g.
 ``jax.tree.map(np.asarray, params)`` on the JAX side) and returns float32
-tensors on ``device``; ``params_to_jax`` is the reverse, for the later
-checkpoint cross-restore. Neither imports jax.
+tensors on ``device`` (``cuda`` unless the caller passes another);
+``params_to_jax`` is the reverse, for the later checkpoint cross-restore.
+Neither imports jax.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import resolve_device
 
 
 def _map(tree, fn):
@@ -25,8 +28,9 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(np_tree, device="cpu"):
-    """numpy pytree -> dict of float32 tensors (copies)."""
+def params_from_jax(np_tree, device=None):
+    """numpy pytree -> dict of float32 tensors (copies) on ``device``."""
+    device = resolve_device(device)
     return _map(np_tree, lambda a: torch.tensor(np.array(a, np.float32),
                                                 device=device))
 

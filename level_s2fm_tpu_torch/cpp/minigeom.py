@@ -1,14 +1,19 @@
 """ctypes bindings for the native minigeom library (C++).
 
 The port's own copy of ``native/minigeom.cpp`` and ``native/build.sh``
-(byte for byte the JAX package's) is built with g++ at first use into
-``native/libminigeom.so``. It provides the pycolmap-equivalent host
+(byte for byte the JAX package's) is built at first use with g++ and the
+flags of ``build.sh`` into ``../_build/`` (listed in ``.gitignore``),
+under a name keyed by the hash of the source and flags, as
+``kernels.build`` does for the CUDA sources: an edited source is rebuilt,
+and concurrent builders each write a private file that is renamed into
+place, so none loads a half-written library. It provides the pycolmap-equivalent host
 geometry: 5-point essential RANSAC with cheirality, P3P LO-RANSAC and LM
 pose refinement. ``load()`` raises if the library cannot be built.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -18,22 +23,32 @@ import numpy as np
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
-_NATIVE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SOURCE = os.path.join(_HERE, "native", "minigeom.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+_GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-Wall"]       # those of build.sh
 
 
 def _lib_path() -> str:
-    return os.path.join(_NATIVE, "libminigeom.so")
+    with open(_SOURCE, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(_GXX_FLAGS).encode()
+                              ).hexdigest()[:12]
+    return os.path.join(_BUILD_DIR, f"libminigeom-{digest}.so")
 
 
 def build() -> str:
     """Build the shared library with g++ if it is missing; return its path."""
     path = _lib_path()
-    if not os.path.exists(path):
-        proc = subprocess.run(["sh", os.path.join(_NATIVE, "build.sh")],
-                              capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0 or not os.path.exists(path):
-            raise RuntimeError(f"building minigeom failed:\n{proc.stdout}\n"
-                               f"{proc.stderr}")
+    if os.path.exists(path):
+        return path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run(["g++", *_GXX_FLAGS, "-o", tmp, _SOURCE],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building minigeom failed:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, path)
     return path
 
 

@@ -120,7 +120,7 @@ def test_infer_all_with_normal_matches_jax(sdf_setup):
     (_, (js, jf, jn)), (jgp, jgx) = jax.jit(jax.value_and_grad(
         jloss, argnums=(0, 1), has_aux=True))(jp, jnp.asarray(xyz))
 
-    tp = params_from_jax(pnp["sdf"])
+    tp = params_from_jax(pnp["sdf"], device="cpu")
     for leaf in (tp["table"], tp["beta"], *[v for lay in tp["mlp"]["layers"] for v in lay.values()]):
         leaf.requires_grad_(True)
     tx = torch.tensor(xyz, requires_grad=True)
@@ -153,12 +153,13 @@ def test_radiance_and_forward_ab_match_jax(sdf_setup):
     enc = rng.standard_normal((100, trc.input_enc_dim)).astype(np.float32)
     view = rng.standard_normal((100, 3)).astype(np.float32)
     jr = jradf.infer_app(jax.tree.map(jnp.asarray, pnp["rad"]), jrc, jnp.asarray(enc))
-    tr = tradf.infer_app(params_from_jax(pnp["rad"]), trc, torch.as_tensor(enc))
+    tr = tradf.infer_app(params_from_jax(pnp["rad"], device="cpu"), trc,
+                         torch.as_tensor(enc))
     assert rel_err(tr, jr) < TOL
     assert rel_err(tradf.embed_view(trc, torch.as_tensor(view)),
                    jradf.embed_view(jrc, jnp.asarray(view))) < TOL
     ja, jb = jsdf.forward_ab(jax.tree.map(jnp.asarray, pnp["sdf"]), jcfg)
-    ta, tb = tsdf.forward_ab(params_from_jax(pnp["sdf"]), tcfg)
+    ta, tb = tsdf.forward_ab(params_from_jax(pnp["sdf"], device="cpu"), tcfg)
     assert rel_err(ta, ja) < TOL and rel_err(tb, jb) < TOL
 
 

@@ -67,6 +67,20 @@ def test_estimate_essential_is_identical():
     assert not thg.estimate_essential(kp0[:4], kp1[:4], s.intrs[0]).success
 
 
+def test_minigeom_library_is_keyed_by_its_source(tmp_path, monkeypatch):
+    """The port builds its own minigeom copy under ``_build/``, named by the
+    hash of the source, so an edited source is never served a stale
+    library."""
+    from level_s2fm_tpu_torch.cpp import minigeom
+    built = minigeom.build()
+    assert os.path.dirname(built) == minigeom._BUILD_DIR
+    assert built == minigeom._lib_path() and os.path.exists(built)
+    edited = tmp_path / "minigeom.cpp"
+    edited.write_bytes(open(minigeom._SOURCE, "rb").read() + b"// edited\n")
+    monkeypatch.setattr(minigeom, "_SOURCE", str(edited))
+    assert minigeom._lib_path() != built
+
+
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml"))))
 def test_options_resolve_identically(path):
     argv = [f"--yaml={path}", "--optim.init.max_iter=7", "--Renderer.compact_samples!",
@@ -219,6 +233,9 @@ def test_device_policy():
         from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
         with pytest.raises(RuntimeError):
             LevelSfM(tconfig.build_options(["--yaml=configs/synthetic.yaml"]))
+        from level_s2fm_tpu_torch.convert import params_from_jax
+        with pytest.raises(RuntimeError):
+            params_from_jax({"beta": np.ones(1, np.float32)})
 
 
 def test_entry_refuses_registration():

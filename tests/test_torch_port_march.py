@@ -52,7 +52,7 @@ def test_sphere_march_matches_jax(setup, iters):
     tcfg = dataclasses.replace(tcfg, iters_max=iters)
     jm = jax.jit(lambda p, c_, r_: jsdf.sphere_march(p, jcfg, c_, r_))(
         jax.tree.map(jnp.asarray, pnp["sdf"]), jnp.asarray(c), jnp.asarray(r))
-    tm = tsdf.sphere_march(params_from_jax(pnp["sdf"]), tcfg,
+    tm = tsdf.sphere_march(params_from_jax(pnp["sdf"], device="cpu"), tcfg,
                            torch.as_tensor(c), torch.as_tensor(r))
     np.testing.assert_array_equal(tm.contrib.numpy(), np.asarray(jm.contrib))
     assert tm.last_idx == int(jm.last_idx)
@@ -81,7 +81,7 @@ def test_sphere_reeval_and_gradients_match_jax(setup):
 
     (_, (jd, js, jf, jpts)), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jp)
 
-    tp = params_from_jax(pnp["sdf"])
+    tp = params_from_jax(pnp["sdf"], device="cpu")
     tp["table"].requires_grad_(True)
     tm = tsdf.sphere_march(tp, tcfg, torch.as_tensor(c), torch.as_tensor(r))
     d, s, f, pts = tsdf.sphere_reeval(tp, tcfg, tm, torch.as_tensor(c), torch.as_tensor(r))
@@ -108,7 +108,7 @@ def test_sphere_tracing_with_the_jax_draws_matches(setup):
     n_all = 32 * tcfg.iters_max + BN
     pick2 = np.array(jax.random.permutation(k3, n_all)[:100])
 
-    tp = params_from_jax(pnp["sdf"])
+    tp = params_from_jax(pnp["sdf"], device="cpu")
     tc_, tr_ = torch.as_tensor(c), torch.as_tensor(r)
     tt = tsdf.sphere_tracing(tp, tcfg, tc_, tr_, gen=torch.Generator().manual_seed(0),
                              track_subsample=32, max_sample_pts=100)

@@ -66,7 +66,7 @@ def test_occupancy_grid_matches_jax(setup):
     from level_s2fm_tpu_torch.sfm import bundle
     from level_s2fm_tpu_torch.sfm.phases import PhaseCfgs
     cfgs = PhaseCfgs(sdf=tcfgs[0], rad=tcfgs[1], ren=tcfgs[2], H=16, W=16)
-    occ = bundle.maybe_build_occ(opt_t, cfgs, params_from_jax(pnp))
+    occ = bundle.maybe_build_occ(opt_t, cfgs, params_from_jax(pnp, device="cpu"))
     assert occ.resolution == 16
     np.testing.assert_array_equal(occ.occ.numpy(), np.asarray(jocc.occ))
     assert 0 < int(occ.occ.sum()) < 16 ** 3
@@ -105,7 +105,7 @@ def test_render_and_gradients_match_jax(setup, compact):
         return sum(jnp.sum(out[k] * ws[k]) for k in keys), out
 
     (_, jout), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jp)
-    tp = params_from_jax(pnp)
+    tp = params_from_jax(pnp, device="cpu")
     for leaf in (tp["sdf"]["table"], tp["sdf"]["beta"],
                  tp["rad"]["rad_mlp"]["layers"][0]["V"]):
         leaf.requires_grad_(True)

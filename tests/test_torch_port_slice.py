@@ -57,7 +57,7 @@ def both():
     tm = tpipe.LevelSfM(opt_t, seed=0, device="cpu")
     tm.load_data(tsyn.scene_to_var(tsyn.make_scene(n_views=2, H=16, W=16,
                                                    n_points=64, seed=0)))
-    tm.params = params_from_jax(params_np)
+    tm.params = params_from_jax(params_np, device="cpu")
     ti = tinit.Initializer(opt_t, tm.cfgs, tm.camera_set, tm.point_set,
                            _init_var(tm.var), device="cpu")
     tparams = ti.run(tm.params, torch.Generator().manual_seed(3))
