@@ -14,10 +14,17 @@ failure raises and exits non-zero):
    shapes, with the tolerance stated; then timed (CUDA events) beside
    its plain version and its bound (bytes over 3.35 TB/s or operations
    over 67 TFLOP/s f32, whichever is larger).
-3. reference — one InitPhase step of a tiny configuration on the CPU
+   The backward is run twice at each shape and must repeat bit for bit;
+   both load modes of the register instance (vector loads, bulk copies)
+   are held and timed, and an empty kernel gives the launch floor.
+3. adapter — ``composite_fused`` forward + backward from the renderer's
+   tensors at the main shape: host ms per call and device launches per
+   call from a torch.profiler trace (at most 4: K1, K2 and two ops on
+   [R] for the per-ray delta).
+4. reference — one InitPhase step of a tiny configuration on the CPU
    (plain versions) and on the GPU (kernels) from the same weights and
    rays: every loss term must agree.
-4. init — the main path: ``LevelSfM.train`` two-view initialization of
+5. init — the main path: ``LevelSfM.train`` two-view initialization of
    the synthetic scene at the full width of ``configs/levels2fm.yaml``
    (hash 16 levels x 2 features x 2^19 with bf16 reads, SDF MLP
    [.,64,16], radiance MLP [.,64,64,3], 8192 rays, 128 samples
@@ -95,19 +102,22 @@ def phase_build():
 # --------------------------------------------------------------------------- kernels
 
 def _composite_inputs(R, K, seed, dev):
+    """Inputs in the kernels' layout (the renderer's): sdf/depth [R,K],
+    valid [R,K] bool, delta [R], rgb/normal [R,K,3], alpha/beta scalars,
+    and the per-ray cotangents."""
     import torch
     g = torch.Generator().manual_seed(seed)
     u = lambda *s: torch.rand(*s, generator=g)  # noqa: E731
     sdf = (u(R, K) - 0.5) * 0.2
-    valid = (u(R, K) > 0.3).float()
-    delta = 0.01 + 0.09 * u(R, K)
-    rgb = u(3, R, K)
+    valid = u(R, K) > 0.3
+    delta = 0.01 + 0.09 * u(R)
+    rgb = u(R, K, 3)
     depth = 0.5 + 2.5 * u(R, K)
-    normal = u(3, R, K) * 2 - 1
-    grads = (u(3, R) - 0.5, u(R) - 0.5, u(3, R) - 0.5, u(R) - 0.5)
-    args = [x.to(dev) for x in (sdf, valid, delta, rgb, depth, normal)]
+    normal = u(R, K, 3) * 2 - 1
+    grads = (u(R, 3) - 0.5, u(R) - 0.5, u(R, 3) - 0.5, u(R) - 0.5)
     ab = torch.tensor([20.0, 0.05], device=dev)
-    return args, ab, [x.to(dev) for x in grads]
+    args = [x.to(dev) for x in (sdf, valid, delta, rgb, depth, normal)]
+    return args + [ab[0], ab[1]], [x.to(dev) for x in grads]
 
 
 def _time_ms(fn, reps=3, n=100):
@@ -145,68 +155,165 @@ def _bound(nbytes, nops):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def _composite_bytes(R, K):
+    """(forward, backward) bytes: each input read once, each output
+    written once. Per sample sdf, depth 4 B, valid 1 B, rgb, normal 12 B;
+    per ray delta 4 B; alpha, beta 8 B; forward out 8 floats per ray;
+    backward in adds 8 floats per ray of cotangents, out 8 floats per
+    sample, d_delta one float per ray and d_ab 2 floats."""
+    inputs = R * K * 33 + 4 * R + 8
+    return inputs + 32 * R, inputs + 32 * R + 32 * R * K + 4 * R + 8
+
+
+#: composite shapes held against the plain versions: the main path's
+#: (R = 2 x 2048 rays per call, K = 32), two cameras' worth, a ragged
+#: tile, the full K = 128, the chunked instance (K > 128) and a size
+#: (~70 MB of inputs) beyond the 50 MB L2
+COMPOSITE_SHAPES = [(4096, 32), (8192, 32), (1000, 32), (257, 128), (300, 257),
+                    (65536, 32)]
+#: the two ways a tile reaches the registers (fused_composite.MODE)
+LOAD_MODES = {0: "vector", 1: "bulk"}
+
+
 def phase_kernels(main_shape):
-    """K1/K2 against their plain versions; returns per-kernel records."""
+    """K1/K2 against their plain versions, timed; returns per-kernel records."""
     import torch
     from level_s2fm_tpu_torch.rendering import fused_composite as fc
     dev = torch.device("cuda")
     atol, rtol_ab = 2e-4, 1e-4
     err = {"fwd": 0.0, "bwd": 0.0}
-    shapes = [main_shape, (8192, 32), (1000, 32), (257, 128)]
-    for R, K in shapes:
-        args, ab, grads = _composite_inputs(R, K, R + K, dev)
-        a, b = ab[0], ab[1]
-        out_k = fc.forward_cuda(*args, ab)
-        out_r = fc._forward_ref(*args, a, b)
-        bwd_k = fc.backward_cuda(*args, ab, *grads)
-        r = fc._backward_ref((*args, a, b), tuple(grads))
-        bwd_r = (r[0], r[2], r[3], r[4], r[5], r[6], r[7])
-        torch.cuda.synchronize()
-        e_f = max(float((x - y).abs().max()) for x, y in zip(out_k, out_r))
-        e_b = max(float((x - y).abs().max()) for x, y in zip(bwd_k[:5], bwd_r[:5]))
-        e_ab = max(float((x - y).abs() / y.abs().clamp_min(1e-30))
-                   for x, y in zip(bwd_k[5:], bwd_r[5:]))
-        log(f"[kernels] R={R} K={K}: fwd max_abs_err={e_f:.3e} "
-            f"bwd max_abs_err={e_b:.3e} d_alpha/d_beta rel_err={e_ab:.3e}")
-        assert e_f <= atol and e_b <= atol, (R, K, e_f, e_b)
-        assert e_ab <= rtol_ab, (R, K, e_ab)
-        err["fwd"] = max(err["fwd"], e_f)
-        err["bwd"] = max(err["bwd"], e_b)
+    for R, K in COMPOSITE_SHAPES:
+        args, grads = _composite_inputs(R, K, R + K, dev)
+        out_r = fc._forward_ref(*args)
+        bwd_r = fc._backward_ref(tuple(args), tuple(grads))
+        for mode, mname in LOAD_MODES.items():
+            out_k = fc.forward_cuda(*args, mode=mode)
+            bwd_k = fc.backward_cuda(*args, *grads, mode=mode)
+            again = fc.backward_cuda(*args, *grads, mode=mode)
+            torch.cuda.synchronize()
+            e_f = max(float((x - y).abs().max()) for x, y in zip(out_k, out_r))
+            e_b = max(float((x - y).abs().max()) for x, y in zip(bwd_k[:5], bwd_r[:5]))
+            e_ab = max(float((x - y).abs() / y.abs().clamp_min(1e-30))
+                       for x, y in zip(bwd_k[5:], bwd_r[5:]))
+            same = all(torch.equal(x, y) for x, y in zip(bwd_k, again))
+            log(f"[kernels] R={R} K={K} {mname}: fwd max_abs_err={e_f:.3e} "
+                f"bwd max_abs_err={e_b:.3e} d_alpha/d_beta rel_err={e_ab:.3e} "
+                f"bwd bitwise repeatable={same}")
+            assert e_f <= atol and e_b <= atol, (R, K, mode, e_f, e_b)
+            assert e_ab <= rtol_ab, (R, K, mode, e_ab)
+            assert same, (R, K, mode)
+            err["fwd"] = max(err["fwd"], e_f)
+            err["bwd"] = max(err["bwd"], e_b)
+        del out_r, bwd_r, out_k, bwd_k, again
+
+    floor_ms, floor_host = _time_ms(fc.empty_cuda)
+    log(f"[kernels] empty kernel through the same ctypes path: device "
+        f"{floor_ms * 1e3:.3f} us per launch back to back, host "
+        f"{floor_host * 1e3:.1f} us per call")
+    timing = {}
+    for R, K in (main_shape, (65536, 32)):
+        args, grads = _composite_inputs(R, K, 7, dev)
+        fb, bb = _composite_bytes(R, K)
+        fwd_b, bwd_b = _bound(fb, 30 * R * K), _bound(bb, 75 * R * K)
+        for mode, mname in LOAD_MODES.items():
+            tf, hf = _time_ms(lambda: fc.forward_cuda(*args, mode=mode))
+            tb, hb = _time_ms(lambda: fc.backward_cuda(*args, *grads, mode=mode))
+            timing[(R, K, mode)] = (tf, hf, tb, hb)
+            log(f"[kernels] R={R} K={K} {mname}: fwd {tf * 1e3:.3f} us "
+                f"(bound {fwd_b[0] * 1e3:.3f} us {fwd_b[1]}, "
+                f"{fwd_b[0] / tf:.1%} of bound; host {hf * 1e3:.1f} us/call), "
+                f"bwd {tb * 1e3:.3f} us (bound {bwd_b[0] * 1e3:.3f} us {bwd_b[1]}, "
+                f"{bwd_b[0] / tb:.1%} of bound; host {hb * 1e3:.1f} us/call)")
+        if (R, K) == tuple(main_shape):
+            t_plain = {
+                "fwd": _time_ms(lambda: fc._forward_ref(*args))[0],
+                "bwd": _time_ms(lambda: fc._backward_ref(tuple(args), tuple(grads)))[0]}
+            main_bounds = (fwd_b, bwd_b)
+        del args, grads
+        torch.cuda.empty_cache()
 
     R, K = main_shape
-    args, ab, grads = _composite_inputs(R, K, 7, dev)
-    a, b = ab[0], ab[1]
-    t, host = {}, {}
-    for k, fn in (("fwd", lambda: fc.forward_cuda(*args, ab)),
-                  ("fwd_plain", lambda: fc._forward_ref(*args, a, b)),
-                  ("bwd", lambda: fc.backward_cuda(*args, ab, *grads)),
-                  ("bwd_plain", lambda: fc._backward_ref((*args, a, b), tuple(grads)))):
-        t[k], host[k] = _time_ms(fn)
-    n_blocks = -(-R // 8)
-    # bytes: each input read once, each output written once (float32)
-    fwd_bytes = 4 * (10 * R * K + 2 + 8 * R)
-    bwd_bytes = 4 * (10 * R * K + 2 + 8 * R + 9 * R * K + 2 * n_blocks)
-    # operations per sample, counted from the kernels' arithmetic (an exp
-    # or a division counts as one): forward ~30, backward ~75
-    fwd_b, fwd_by = _bound(fwd_bytes, 30 * R * K)
-    bwd_b, bwd_by = _bound(bwd_bytes, 75 * R * K)
+    kept = timing[(R, K, fc.MODE)]
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = main_bounds
     src = "level_s2fm_tpu_torch/csrc/composite.cu"
     ref = "level_s2fm_tpu/rendering/pallas_composite.py"
     recs = [
         {"name": "laplace_composite_fwd", "route": "cuda", "source": src,
          "replaces": f"{ref}:118 (_fwd_kernel, launched at :209)",
-         "max_abs_err": err["fwd"], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
+         "max_abs_err": err["fwd"], "ms": kept[0], "plain_ms": t_plain["fwd"],
          "bound_ms": fwd_b, "bound_by": fwd_by, "library_ms": None},
         {"name": "laplace_composite_bwd", "route": "cuda", "source": src,
          "replaces": f"{ref}:135 (_bwd_kernel, launched at :267)",
-         "max_abs_err": err["bwd"], "ms": t["bwd"], "plain_ms": t["bwd_plain"],
+         "max_abs_err": err["bwd"], "ms": kept[2], "plain_ms": t_plain["bwd"],
          "bound_ms": bwd_b, "bound_by": bwd_by, "library_ms": None},
     ]
-    log(f"[kernels] timing at the main path's R={R} K={K} (no single PyTorch "
-        f"call computes this function: library_ms is null): "
-        + "device ms " + json.dumps(t) + " host ms per call " + json.dumps(host)
-        + f" bound fwd {fwd_b * 1e3:.3f} us ({fwd_by}) bwd {bwd_b * 1e3:.3f} us ({bwd_by})")
+    log(f"[kernels] main path R={R} K={K}, kept load mode "
+        f"{LOAD_MODES[fc.MODE]} (no single PyTorch call computes this function: "
+        f"library_ms is null): device ms fwd {kept[0]:.6f} bwd {kept[2]:.6f}, "
+        f"plain ms " + json.dumps(t_plain)
+        + f", empty-kernel floor {floor_ms:.6f} ms")
     return recs
+
+
+def phase_adapter(B=2, HW=2048, K=32):
+    """``composite_fused`` forward + autograd backward from the renderer's
+    tensors at the main path's shape (one ``ray_chunk`` call: two cameras
+    x 2048 rays, K = 32): host ms per call, and the device launches per
+    call from a torch.profiler trace. The ray and the cotangents are
+    slices of twice-wider tensors, as the renderer's chunking hands them;
+    normal_mlp gets no cotangent, as in the init step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    dev = torch.device("cuda")
+    args, _ = _composite_inputs(B * HW, K, 11, dev)
+    sdf, valid, _, rgb, depth, normal = (
+        x.reshape(B, HW, *x.shape[1:]).detach() for x in args[:6])
+    g = torch.Generator(device="cpu").manual_seed(12)
+    ray = torch.randn(B, 2 * HW, 3, generator=g).to(dev)[:, :HW]
+    bin_w = (0.01 + 0.02 * torch.rand(B, HW, generator=g)).to(dev)
+    alpha = torch.tensor(20.0, device=dev, requires_grad=True)
+    beta = torch.tensor(0.05, device=dev, requires_grad=True)
+    for t in (sdf, rgb, normal):
+        t.requires_grad_(True)
+    cot_rgb = torch.randn(B, 2 * HW, 3, generator=g).to(dev)[:, :HW]
+    cot_dep = torch.randn(B, 2 * HW, 1, generator=g).to(dev)[:, :HW]
+    cot_op = torch.randn(B, 2 * HW, 1, generator=g).to(dev)[:, :HW]
+
+    def step():
+        o = fc.composite_fused(ray, rgb, sdf, valid, bin_w, depth, normal,
+                               alpha, beta)
+        return torch.autograd.grad((o[0], o[1], o[3]), (sdf, rgb, normal, alpha, beta),
+                                   (cot_rgb, cot_dep, cot_op))
+
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    n = 200
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    n_prof = 10
+    before = dict(fc.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            step()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name[:70]] = names.get(e.name[:70], 0) + 1
+    per_call = sum(names.values()) / n_prof
+    kernels = {k: v / n_prof for k, v in names.items()}
+    log(f"[adapter] composite_fused fwd+bwd B={B} HW={HW} K={K}: host "
+        f"{host_ms:.4f} ms per call (synchronised wall over {n}), device "
+        f"launches per call {per_call:g} (torch.profiler): " + json.dumps(kernels))
+    assert fc.LAUNCHES["fwd"] - before["fwd"] == n_prof
+    assert fc.LAUNCHES["bwd"] - before["bwd"] == n_prof
+    assert per_call <= 4, kernels   # K1 + K2 + at most two ops on [R]
 
 
 # --------------------------------------------------------------------------- reference
@@ -470,6 +577,7 @@ def main():
     # the main path's composite shape: 8192 rays over 2 cameras, ray_chunk
     # 2048 -> two calls of R = 2 x 2048 rays, K = compact_samples = 32
     recs = phase_kernels(main_shape=(4096, 32))
+    phase_adapter()
     phase_reference()
     launches = phase_init()
     recs[0]["launches"] = launches["fwd"]

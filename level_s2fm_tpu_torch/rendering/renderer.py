@@ -173,9 +173,8 @@ def _render_impl(sdf_params, sdf_cfg: sdf_mod.SDFConfig,
         if center.is_cuda and cfg.fused_composite is False:
             raise ValueError("Renderer.fused_composite=false: the compacted "
                              "path on CUDA always runs the fused kernels")
-        deltas = bin_w[..., None].expand(sdfs[..., 0].shape)
         rgb_s, depth_mlp, normal_mlp, opacity = fc.composite_fused(
-            ray, rgbs, sdfs[..., 0], sample_valid, deltas,
+            ray, rgbs, sdfs[..., 0], sample_valid, bin_w,
             depth_samples[..., 0], normals, alpha_r[0], beta_r[0])
         rgb = rgb_s + (1 - opacity) * bg
         depth_mlp = depth_mlp + (1 - opacity) * depth_samples[..., -1, :]
