@@ -13,10 +13,9 @@ failure raises and exits non-zero):
    version on the card, at the main path's shape and at ragged / chunked
    shapes, with the tolerance stated; then timed (CUDA events) beside
    its plain version and its bound (bytes over 3.35 TB/s or operations
-   over 67 TFLOP/s f32, whichever is larger).
+   over 67 TFLOP/s f32, whichever is larger; ``devtime.bound_ms``).
    The backward is run twice at each shape and must repeat bit for bit;
-   both load modes of the register instance (vector loads, bulk copies)
-   are held and timed, and an empty kernel gives the launch floor.
+   an empty kernel launched the same way gives the launch floor.
 3. adapter — ``composite_fused`` forward + backward from the renderer's
    tensors at the main shape: host ms per call and device launches per
    call from a torch.profiler trace (at most 4: K1, K2 and two ops on
@@ -47,8 +46,6 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
-F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 
 FULL_WIDTH_ARGS = [
     "--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
@@ -101,139 +98,73 @@ def phase_build():
 
 # --------------------------------------------------------------------------- kernels
 
-def _composite_inputs(R, K, seed, dev):
-    """Inputs in the kernels' layout (the renderer's): sdf/depth [R,K],
-    valid [R,K] bool, delta [R], rgb/normal [R,K,3], alpha/beta scalars,
-    and the per-ray cotangents."""
-    import torch
-    g = torch.Generator().manual_seed(seed)
-    u = lambda *s: torch.rand(*s, generator=g)  # noqa: E731
-    sdf = (u(R, K) - 0.5) * 0.2
-    valid = u(R, K) > 0.3
-    delta = 0.01 + 0.09 * u(R)
-    rgb = u(R, K, 3)
-    depth = 0.5 + 2.5 * u(R, K)
-    normal = u(R, K, 3) * 2 - 1
-    grads = (u(R, 3) - 0.5, u(R) - 0.5, u(R, 3) - 0.5, u(R) - 0.5)
-    ab = torch.tensor([20.0, 0.05], device=dev)
-    args = [x.to(dev) for x in (sdf, valid, delta, rgb, depth, normal)]
-    return args + [ab[0], ab[1]], [x.to(dev) for x in grads]
-
-
-def _time_ms(fn, reps=3, n=100):
-    """Device time per call, in ms: the stream is held by a spin kernel
-    (``torch.cuda._sleep``) while ``n`` calls are enqueued, so the events
-    time the calls back to back on the card, without the host's per-call
-    overhead. Returns (device_ms, host_ms) per call; best of ``reps``."""
-    import torch
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / n * 1e3
-    cycles = int(host_ms * 1e-3 * n * 2.5e9 * 1.5) + 1_000_000
-    best = math.inf
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / n)
-    return best, host_ms
-
-
-def _bound(nbytes, nops):
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = nops / F32_FLOPS * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def _composite_bytes(R, K):
-    """(forward, backward) bytes: each input read once, each output
-    written once. Per sample sdf, depth 4 B, valid 1 B, rgb, normal 12 B;
-    per ray delta 4 B; alpha, beta 8 B; forward out 8 floats per ray;
-    backward in adds 8 floats per ray of cotangents, out 8 floats per
-    sample, d_delta one float per ray and d_ab 2 floats."""
-    inputs = R * K * 33 + 4 * R + 8
-    return inputs + 32 * R, inputs + 32 * R + 32 * R * K + 4 * R + 8
-
-
 #: composite shapes held against the plain versions: the main path's
 #: (R = 2 x 2048 rays per call, K = 32), two cameras' worth, a ragged
 #: tile, the full K = 128, the chunked instance (K > 128) and a size
 #: (~70 MB of inputs) beyond the 50 MB L2
 COMPOSITE_SHAPES = [(4096, 32), (8192, 32), (1000, 32), (257, 128), (300, 257),
                     (65536, 32)]
-#: the two ways a tile reaches the registers (fused_composite.MODE)
-LOAD_MODES = {0: "vector", 1: "bulk"}
 
 
 def phase_kernels(main_shape):
     """K1/K2 against their plain versions, timed; returns per-kernel records."""
     import torch
+    from level_s2fm_tpu_torch import devtime
+    from level_s2fm_tpu_torch.rendering import composite_bench
     from level_s2fm_tpu_torch.rendering import fused_composite as fc
     dev = torch.device("cuda")
     atol, rtol_ab = 2e-4, 1e-4
     err = {"fwd": 0.0, "bwd": 0.0}
     for R, K in COMPOSITE_SHAPES:
-        args, grads = _composite_inputs(R, K, R + K, dev)
+        args, grads = composite_bench.composite_inputs(R, K, R + K, dev)
         out_r = fc._forward_ref(*args)
         bwd_r = fc._backward_ref(tuple(args), tuple(grads))
-        for mode, mname in LOAD_MODES.items():
-            out_k = fc.forward_cuda(*args, mode=mode)
-            bwd_k = fc.backward_cuda(*args, *grads, mode=mode)
-            again = fc.backward_cuda(*args, *grads, mode=mode)
-            torch.cuda.synchronize()
-            e_f = max(float((x - y).abs().max()) for x, y in zip(out_k, out_r))
-            e_b = max(float((x - y).abs().max()) for x, y in zip(bwd_k[:5], bwd_r[:5]))
-            e_ab = max(float((x - y).abs() / y.abs().clamp_min(1e-30))
-                       for x, y in zip(bwd_k[5:], bwd_r[5:]))
-            same = all(torch.equal(x, y) for x, y in zip(bwd_k, again))
-            log(f"[kernels] R={R} K={K} {mname}: fwd max_abs_err={e_f:.3e} "
-                f"bwd max_abs_err={e_b:.3e} d_alpha/d_beta rel_err={e_ab:.3e} "
-                f"bwd bitwise repeatable={same}")
-            assert e_f <= atol and e_b <= atol, (R, K, mode, e_f, e_b)
-            assert e_ab <= rtol_ab, (R, K, mode, e_ab)
-            assert same, (R, K, mode)
-            err["fwd"] = max(err["fwd"], e_f)
-            err["bwd"] = max(err["bwd"], e_b)
+        out_k = fc.forward_cuda(*args)
+        bwd_k = fc.backward_cuda(*args, *grads)
+        again = fc.backward_cuda(*args, *grads)
+        torch.cuda.synchronize()
+        e_f = max(float((x - y).abs().max()) for x, y in zip(out_k, out_r))
+        e_b = max(float((x - y).abs().max()) for x, y in zip(bwd_k[:5], bwd_r[:5]))
+        e_ab = max(float((x - y).abs() / y.abs().clamp_min(1e-30))
+                   for x, y in zip(bwd_k[5:], bwd_r[5:]))
+        same = all(torch.equal(x, y) for x, y in zip(bwd_k, again))
+        log(f"[kernels] R={R} K={K}: fwd max_abs_err={e_f:.3e} "
+            f"bwd max_abs_err={e_b:.3e} d_alpha/d_beta rel_err={e_ab:.3e} "
+            f"bwd bitwise repeatable={same}")
+        assert e_f <= atol and e_b <= atol, (R, K, e_f, e_b)
+        assert e_ab <= rtol_ab, (R, K, e_ab)
+        assert same, (R, K)
+        err["fwd"] = max(err["fwd"], e_f)
+        err["bwd"] = max(err["bwd"], e_b)
         del out_r, bwd_r, out_k, bwd_k, again
 
-    floor_ms, floor_host = _time_ms(fc.empty_cuda)
+    floor_ms, floor_host = devtime.time_ms(fc.empty_cuda)
     log(f"[kernels] empty kernel through the same ctypes path: device "
         f"{floor_ms * 1e3:.3f} us per launch back to back, host "
         f"{floor_host * 1e3:.1f} us per call")
     timing = {}
     for R, K in (main_shape, (65536, 32)):
-        args, grads = _composite_inputs(R, K, 7, dev)
-        fb, bb = _composite_bytes(R, K)
-        fwd_b, bwd_b = _bound(fb, 30 * R * K), _bound(bb, 75 * R * K)
-        for mode, mname in LOAD_MODES.items():
-            tf, hf = _time_ms(lambda: fc.forward_cuda(*args, mode=mode))
-            tb, hb = _time_ms(lambda: fc.backward_cuda(*args, *grads, mode=mode))
-            timing[(R, K, mode)] = (tf, hf, tb, hb)
-            log(f"[kernels] R={R} K={K} {mname}: fwd {tf * 1e3:.3f} us "
-                f"(bound {fwd_b[0] * 1e3:.3f} us {fwd_b[1]}, "
-                f"{fwd_b[0] / tf:.1%} of bound; host {hf * 1e3:.1f} us/call), "
-                f"bwd {tb * 1e3:.3f} us (bound {bwd_b[0] * 1e3:.3f} us {bwd_b[1]}, "
-                f"{bwd_b[0] / tb:.1%} of bound; host {hb * 1e3:.1f} us/call)")
+        args, grads = composite_bench.composite_inputs(R, K, 7, dev)
+        fb, bb = composite_bench.composite_bytes(R, K)
+        fwd_b, bwd_b = devtime.bound_ms(fb, 30 * R * K), devtime.bound_ms(bb, 75 * R * K)
+        tf, hf = devtime.time_ms(lambda: fc.forward_cuda(*args))
+        tb, hb = devtime.time_ms(lambda: fc.backward_cuda(*args, *grads))
+        timing[(R, K)] = (tf, hf, tb, hb)
+        log(f"[kernels] R={R} K={K}: fwd {tf * 1e3:.3f} us "
+            f"(bound {fwd_b[0] * 1e3:.3f} us {fwd_b[1]}, "
+            f"{fwd_b[0] / tf:.1%} of bound; host {hf * 1e3:.1f} us/call), "
+            f"bwd {tb * 1e3:.3f} us (bound {bwd_b[0] * 1e3:.3f} us {bwd_b[1]}, "
+            f"{bwd_b[0] / tb:.1%} of bound; host {hb * 1e3:.1f} us/call)")
         if (R, K) == tuple(main_shape):
             t_plain = {
-                "fwd": _time_ms(lambda: fc._forward_ref(*args))[0],
-                "bwd": _time_ms(lambda: fc._backward_ref(tuple(args), tuple(grads)))[0]}
+                "fwd": devtime.time_ms(lambda: fc._forward_ref(*args))[0],
+                "bwd": devtime.time_ms(lambda: fc._backward_ref(tuple(args), tuple(grads)))[0]}
             main_bounds = (fwd_b, bwd_b)
         del args, grads
         torch.cuda.empty_cache()
 
     R, K = main_shape
-    kept = timing[(R, K, fc.MODE)]
+    kept = timing[(R, K)]
     (fwd_b, fwd_by), (bwd_b, bwd_by) = main_bounds
     src = "level_s2fm_tpu_torch/csrc/composite.cu"
     ref = "level_s2fm_tpu/rendering/pallas_composite.py"
@@ -247,9 +178,9 @@ def phase_kernels(main_shape):
          "max_abs_err": err["bwd"], "ms": kept[2], "plain_ms": t_plain["bwd"],
          "bound_ms": bwd_b, "bound_by": bwd_by, "library_ms": None},
     ]
-    log(f"[kernels] main path R={R} K={K}, kept load mode "
-        f"{LOAD_MODES[fc.MODE]} (no single PyTorch call computes this function: "
-        f"library_ms is null): device ms fwd {kept[0]:.6f} bwd {kept[2]:.6f}, "
+    log(f"[kernels] main path R={R} K={K} (no single PyTorch call computes "
+        f"this function: library_ms is null): device ms fwd {kept[0]:.6f} "
+        f"bwd {kept[2]:.6f}, "
         f"plain ms " + json.dumps(t_plain)
         + f", empty-kernel floor {floor_ms:.6f} ms")
     return recs
@@ -265,9 +196,11 @@ def phase_adapter(B=2, HW=2048, K=32):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from level_s2fm_tpu_torch import devtime
+    from level_s2fm_tpu_torch.rendering import composite_bench
     from level_s2fm_tpu_torch.rendering import fused_composite as fc
     dev = torch.device("cuda")
-    args, _ = _composite_inputs(B * HW, K, 11, dev)
+    args, _ = composite_bench.composite_inputs(B * HW, K, 11, dev)
     sdf, valid, _, rgb, depth, normal = (
         x.reshape(B, HW, *x.shape[1:]).detach() for x in args[:6])
     g = torch.Generator(device="cpu").manual_seed(12)
@@ -287,15 +220,19 @@ def phase_adapter(B=2, HW=2048, K=32):
         return torch.autograd.grad((o[0], o[1], o[3]), (sdf, rgb, normal, alpha, beta),
                                    (cot_rgb, cot_dep, cot_op))
 
+    got = step()
+    res = (sdf, valid, torch.linalg.norm(ray, dim=-1) * bin_w, rgb, depth,
+           normal, alpha, beta)
+    want = fc._backward_ref(tuple(x.detach() for x in res),
+                            (cot_rgb, cot_dep[..., 0], None, cot_op[..., 0]))
+    want = (want[0], want[2], want[4], want[5], want[6])
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:3], want[:3]))
+    err_ab = max(float((a - b).abs() / b.abs()) for a, b in zip(got[3:], want[3:]))
+    assert err <= 2e-4 and err_ab <= 1e-4, (err, err_ab)
     for _ in range(5):
         step()
-    torch.cuda.synchronize()
     n = 200
-    t0 = time.perf_counter()
-    for _ in range(n):
-        step()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / n * 1e3
+    host_ms = devtime.host_ms(step, n)
     n_prof = 10
     before = dict(fc.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -308,8 +245,10 @@ def phase_adapter(B=2, HW=2048, K=32):
             names[e.name[:70]] = names.get(e.name[:70], 0) + 1
     per_call = sum(names.values()) / n_prof
     kernels = {k: v / n_prof for k, v in names.items()}
-    log(f"[adapter] composite_fused fwd+bwd B={B} HW={HW} K={K}: host "
-        f"{host_ms:.4f} ms per call (synchronised wall over {n}), device "
+    log(f"[adapter] composite_fused fwd+bwd B={B} HW={HW} K={K}, strided "
+        f"cotangents: max_abs_err {err:.3e}, d_alpha/d_beta rel_err {err_ab:.3e} "
+        f"against the plain backward; host {host_ms:.4f} ms per call "
+        f"(median of {n}), device "
         f"launches per call {per_call:g} (torch.profiler): " + json.dumps(kernels))
     assert fc.LAUNCHES["fwd"] - before["fwd"] == n_prof
     assert fc.LAUNCHES["bwd"] - before["bwd"] == n_prof

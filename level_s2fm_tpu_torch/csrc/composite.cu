@@ -29,8 +29,9 @@
 // sample against 33 (forward) / 65 (backward) bytes per sample, far under
 // the card's 20 operations per byte: they are bound by bytes. At the main
 // path's R=4096, K=32 the inputs are 4.3 MB, already in the 50 MB L2, so a
-// launch is a few microseconds and the fixed cost of a launch matters as
-// much as the bytes.
+// launch is a few microseconds, and the fixed cost of a launch (an empty
+// kernel takes 1.9 us back to back on the H100) matters as much as the
+// bytes.
 //
 // Design (the "register instance", K <= 128 and K % 4 == 0, the main
 // path's K = 32 and the full K = 128):
@@ -48,22 +49,32 @@
 //   and d_normal: loads and stores are 16 bytes a thread, neighbouring
 //   lanes on neighbouring addresses (coalesced), ~150 bytes in flight per
 //   thread.
-// - Two ways to bring a tile of rays in, chosen by the caller's `mode`:
-//   kModeVector (0): one block per tile, each lane loads its vectors from
-//   device memory straight into registers. kModeBulk (1): a persistent
-//   grid (up to 4 blocks per SM) walks the tiles; one thread stages each
-//   tile's six contiguous slabs into shared memory with the 1-D bulk
-//   asynchronous copy (cp.async.bulk, completion on an mbarrier, no tensor
-//   map) into a double-buffered ring, so the next tile's loads overlap this
-//   tile's scans and expf's. Every slab of a whole tile is a multiple of 16
-//   bytes because K % 4 == 0 and the tile is 128 / L rays; the last, ragged
-//   tile is read straight from device memory. Measured on the H100 at the
-//   main path's shape, see PERF.md; the wrapper launches the kept one.
+// - One block of 128 threads is one tile of 128 / L rays (16 at K = 32),
+//   one tile per block: every lane issues its nine vector loads at once,
+//   and 256 blocks cover the main path's 4096 rays. This was measured
+//   against a persistent grid (up to 4 blocks per SM) that staged each
+//   tile's six contiguous slabs into a double-buffered shared-memory ring
+//   with the 1-D bulk asynchronous copy (cp.async.bulk, completion on an
+//   mbarrier, one issuing thread), so that the next tile's loads overlap
+//   this tile's scans. On an H100 80GB HBM3 at 700 W (chip_smoke.py) the
+//   vector loads were faster at every shape timed: at R = 4096, K = 32
+//   3.527 / 7.736 us (forward / backward) against 3.773 / 8.193 us for
+//   the bulk ring, at R = 65,536 27.918 / 58.184 us against 29.330 /
+//   60.679 us. Our reading: at the main path's 256 tiles a persistent
+//   grid has almost nothing to overlap, and at 65,536 rays the vector
+//   loads of many resident blocks already keep enough bytes in flight,
+//   so the ring adds only its barrier waits and a block-wide sync per
+//   tile. The vector loads are kept; the ring is in the repository's
+//   history.
 // - dalpha/dbeta in the same launch, deterministically: each block reduces
-//   its partials in a fixed order and writes them to its own slot; after a
-//   __threadfence the block takes an integer ticket, and the last block
-//   sums the slots in block order into d_ab[0..1] and resets the ticket.
-//   No float atomics, so two calls on the same inputs agree bit for bit.
+//   its partials in a fixed order and writes them to its own slot, then
+//   takes an integer ticket (an acquire-release atomic add, which makes the
+//   slot visible); the last block sums the slots in a fixed order into
+//   d_ab[0..1] and resets the ticket. No float atomics, so two calls on
+//   the same inputs agree bit for bit. This reduction costs the backward
+//   ~1.5 us at the main path's shape (composite_ablation.py), the latency
+//   of the ticket and of the slot reads after the last block's stores; a
+//   __threadfence before a plain atomicAdd cost ~0.4 us more there.
 //
 // The "chunked instance" (128 < K <= 2048, or K % 4 != 0): one ray per
 // warp, 128-sample chunks of 4 samples per lane read with scalar loads.
@@ -83,9 +94,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32 * kSpl;           // samples per chunk (chunked)
 constexpr int kMaxK = 2048;
 constexpr int kMaxChunks = kMaxK / kChunk;  // 16
-constexpr int kModeVector = 0;
-constexpr int kModeBulk = 1;
-constexpr int kBlocksPerSm = 4;             // persistent grid (bulk mode)
 
 // ---------------------------------------------------------------- helpers
 
@@ -124,8 +132,7 @@ __device__ __forceinline__ float seg_excl_suffix(float v, int li) {
   return x;
 }
 
-// A tile's inputs: device memory or a shared-memory stage, indexed by the
-// ray's place in the tile.
+// A tile's inputs, indexed by the ray's place in the tile.
 struct Src {
   const float* sdf;
   const float* depth;
@@ -228,10 +235,14 @@ __device__ __forceinline__ void weights(const float (&s)[kSpl], float prefix,
   }
 }
 
-struct Grads {  // per-ray cotangents; nullptr means zero
+// Per-ray cotangents, nullptr meaning zero. Ray r = b * group + i, channel
+// ch of a cotangent x sits at x[b * x_sb + i * x_sr + ch * x_sc]: the
+// strided slices and broadcasts autograd hands back are read in place.
+struct Grads {
   const float *rgb, *depth, *nrm, *op;
-  long long rgb_sb, rgb_sr, depth_sb, depth_sr, nrm_sb, nrm_sr, op_sb, op_sr;
-  int group;  // rays per leading index: ray r is (r / group, r % group)
+  long long rgb_sb, rgb_sr, rgb_sc, depth_sb, depth_sr, depth_sc;
+  long long nrm_sb, nrm_sr, nrm_sc, op_sb, op_sr, op_sc;
+  int group;
 };
 
 struct RayGrad {
@@ -243,8 +254,8 @@ __device__ __forceinline__ RayGrad load_grad(const Grads& g, int r) {
   RayGrad q;
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
-    q.r[ch] = g.rgb ? g.rgb[b * g.rgb_sb + i * g.rgb_sr + ch] : 0.f;
-    q.n[ch] = g.nrm ? g.nrm[b * g.nrm_sb + i * g.nrm_sr + ch] : 0.f;
+    q.r[ch] = g.rgb ? g.rgb[b * g.rgb_sb + i * g.rgb_sr + ch * g.rgb_sc] : 0.f;
+    q.n[ch] = g.nrm ? g.nrm[b * g.nrm_sb + i * g.nrm_sr + ch * g.nrm_sc] : 0.f;
   }
   q.d = g.depth ? g.depth[b * g.depth_sb + i * g.depth_sr] : 0.f;
   q.o = g.op ? g.op[b * g.op_sb + i * g.op_sr] : 0.f;
@@ -374,14 +385,17 @@ __device__ __forceinline__ void bwd_tile(const Src& src, int t, int TR, int R, i
 }
 
 // Block partials in a fixed order, then the last block (integer ticket)
-// sums every block's slot in block order into d_ab[0..1].
+// sums every block's slot in block order into d_ab[0..1]. Only thread 0's
+// slot store has to reach the last block: its ticket increment releases
+// it, and the last block's thread 0 acquires every slot with its own
+// increment (the __syncthreads after it orders the block's loads).
 __device__ void reduce_ab(float pa, float pb, const DOuts& d) {
   __shared__ float part[kWarps][2];
   __shared__ bool last;
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
   pa = warp_sum(pa);
   pb = warp_sum(pb);
-  const int wid = threadIdx.x / 32;
-  if (threadIdx.x % 32 == 0) {
+  if (lane == 0) {
     part[wid][0] = pa;
     part[wid][1] = pb;
   }
@@ -394,32 +408,38 @@ __device__ void reduce_ab(float pa, float pb, const DOuts& d) {
     }
     d.ab[2 + 2 * blockIdx.x] = sa;
     d.ab[3 + 2 * blockIdx.x] = sb;
-    __threadfence();
-    last = atomicAdd(d.ticket, 1) == (int)gridDim.x - 1;
+    int ticket;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(ticket) : "l"(d.ticket) : "memory");
+    last = ticket == (int)gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
-  __threadfence();
-  // thread i sums slots i, i + kThreads, ... in order; then a fixed tree
-  __shared__ float red[kThreads][2];
+  // thread i sums slots i, i + kThreads, ... in order; then each warp by a
+  // fixed butterfly, and thread 0 the warps in order
+  const float2* slot = reinterpret_cast<const float2*>(d.ab + 2);
   float sa = 0.f, sb = 0.f;
+#pragma unroll 4
   for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads) {
-    sa += __ldcg(d.ab + 2 + 2 * b);
-    sb += __ldcg(d.ab + 3 + 2 * b);
+    const float2 v = __ldcg(slot + b);
+    sa += v.x;
+    sb += v.y;
   }
-  red[threadIdx.x][0] = sa;
-  red[threadIdx.x][1] = sb;
+  sa = warp_sum(sa);
+  sb = warp_sum(sb);
+  if (lane == 0) {
+    part[wid][0] = sa;
+    part[wid][1] = sb;
+  }
   __syncthreads();
-  for (int n = kThreads / 2; n > 0; n >>= 1) {
-    if ((int)threadIdx.x < n) {
-      red[threadIdx.x][0] += red[threadIdx.x + n][0];
-      red[threadIdx.x][1] += red[threadIdx.x + n][1];
-    }
-    __syncthreads();
-  }
   if (threadIdx.x == 0) {
-    d.ab[0] = red[0][0];
-    d.ab[1] = red[0][1];
+    float ta = 0.f, tb = 0.f;
+    for (int i = 0; i < kWarps; ++i) {
+      ta += part[i][0];
+      tb += part[i][1];
+    }
+    d.ab[0] = ta;
+    d.ab[1] = tb;
     *d.ticket = 0;
   }
 }
@@ -433,130 +453,23 @@ __device__ __forceinline__ Src tile_src(const Src& g, int t, int TR, int K) {
              g.delta + (long long)t * TR, g.valid + e};
 }
 
-// A stage of the shared-memory ring: sdf | depth | rgb | nrm | delta | valid.
-__device__ __forceinline__ Src stage_src(unsigned char* base, int TR, int K) {
-  const int n = TR * K;
-  const float* f = reinterpret_cast<const float*>(base);
-  return Src{f, f + n, f + 2 * n, f + 5 * n, f + 8 * n,
-             reinterpret_cast<const uint8_t*>(f + 8 * n + TR)};
-}
-
-__host__ __device__ constexpr int stage_bytes(int TR, int K) {
-  return ((TR * K * 33 + TR * 4) + 15) / 16 * 16;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bulk_load(const void* dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// one thread: stage tile t (a whole tile) into `stage`, completion on bar
-__device__ __forceinline__ void issue_tile(const Src& g, int t, int TR, int K,
-                                           unsigned char* stage, uint32_t bar) {
-  const uint32_t n = (uint32_t)(TR * K);
-  const uint32_t bytes = n * 33u + (uint32_t)TR * 4u;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-  const Src s = tile_src(g, t, TR, K);
-  const Src d = stage_src(stage, TR, K);
-  bulk_load(d.sdf, s.sdf, n * 4u, bar);
-  bulk_load(d.depth, s.depth, n * 4u, bar);
-  bulk_load(d.rgb, s.rgb, n * 12u, bar);
-  bulk_load(d.nrm, s.nrm, n * 12u, bar);
-  bulk_load(d.delta, s.delta, (uint32_t)TR * 4u, bar);
-  bulk_load(d.valid, s.valid, n, bar);
-}
-
-// Waits for the phase `parity` of the barrier to complete. A copy that
-// never lands traps after ~10 s (2e10 cycles) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && clock64() - start > 20000000000LL) __trap();
-  }
-}
-
-// Walks the tiles of this block (t = blockIdx.x, + gridDim.x, ...) and
-// calls body(src, t) with each tile's inputs: straight from device memory
-// (kModeVector), or staged by bulk copies into a two-stage ring
-// (kModeBulk; the last ragged tile is read from device memory).
-template <int MODE, typename Body>
-__device__ __forceinline__ void for_tiles(const Src& g, int R, int K, int TR,
-                                          Body body) {
-  const int n_tiles = (R + TR - 1) / TR;
-  if constexpr (MODE == kModeVector) {
-    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) body(tile_src(g, t, TR, K), t);
-  } else {
-    extern __shared__ __align__(128) unsigned char ring[];
-    __shared__ __align__(8) uint64_t full[2];
-    const int n_whole = R / TR;
-    const int sb = stage_bytes(TR, K);
-    const uint32_t bar0 = smem_addr(&full[0]), bar1 = smem_addr(&full[1]);
-    if (threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar0) : "memory");
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar1) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      for (int i = 0; i < 2; ++i) {
-        const int t = blockIdx.x + i * gridDim.x;
-        if (t < n_whole) issue_tile(g, t, TR, K, ring + i * sb, i ? bar1 : bar0);
-      }
-    }
-    __syncthreads();
-    uint32_t phases = 0u;  // bit st: the parity stage st waits for next
-    int i = 0;
-    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++i) {
-      const int st = i & 1;
-      const uint32_t bar = st ? bar1 : bar0;
-      if (t < n_whole) {
-        mbar_wait(bar, (phases >> st) & 1u);
-        phases ^= 1u << st;
-        body(stage_src(ring + st * sb, TR, K), t);
-      } else {
-        body(tile_src(g, t, TR, K), t);
-      }
-      // the tile is done with this stage: refill it with the tile after
-      // next, while the next tile (the other stage) is already in flight
-      __syncthreads();
-      const int t2 = t + 2 * gridDim.x;
-      if (threadIdx.x == 0 && t2 < n_whole) issue_tile(g, t2, TR, K, ring + st * sb, bar);
-    }
-  }
-}
-
-template <int L, int MODE>
+template <int L>
 __global__ void __launch_bounds__(kThreads)
 fwd_regs(Src g, const float* __restrict__ alpha_p, const float* __restrict__ beta_p,
          int R, int K, Outs out) {
   const Coeffs c{*alpha_p, 1.f / *beta_p};
-  const int TR = kThreads / L;
-  for_tiles<MODE>(g, R, K, TR, [&](const Src& src, int t) {
-    fwd_tile<L>(src, t, TR, R, K, c, out);
-  });
+  constexpr int TR = kThreads / L;
+  fwd_tile<L>(tile_src(g, blockIdx.x, TR, K), blockIdx.x, TR, R, K, c, out);
 }
 
-template <int L, int MODE>
+template <int L>
 __global__ void __launch_bounds__(kThreads)
 bwd_regs(Src g, const float* __restrict__ alpha_p, const float* __restrict__ beta_p,
          int R, int K, Grads gr, DOuts d) {
   const Coeffs c{*alpha_p, 1.f / *beta_p};
-  const int TR = kThreads / L;
+  constexpr int TR = kThreads / L;
   float pa = 0.f, pb = 0.f;
-  for_tiles<MODE>(g, R, K, TR, [&](const Src& src, int t) {
-    bwd_tile<L>(src, t, TR, R, K, c, gr, d, pa, pb);
-  });
+  bwd_tile<L>(tile_src(g, blockIdx.x, TR, K), blockIdx.x, TR, R, K, c, gr, d, pa, pb);
   reduce_ab(pa, pb, d);
 }
 
@@ -702,52 +615,27 @@ int lanes_for(int K) {
 
 bool regs_instance(int K) { return K <= 32 * kSpl && K % kSpl == 0; }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
-}
-
-int grid_for(int R, int K, int mode) {
+int grid_for(int R, int K) {
   if (!regs_instance(K)) return (R + kWarps - 1) / kWarps;
   const int TR = kThreads / lanes_for(K);
-  const int n_tiles = (R + TR - 1) / TR;
-  if (mode == kModeVector) return n_tiles;
-  const int cap = kBlocksPerSm * sm_count();
-  return n_tiles < cap ? n_tiles : cap;
+  return (R + TR - 1) / TR;
 }
 
-template <int L, int MODE>
+template <int L>
 cudaError_t launch_regs(bool fwd, int grid, cudaStream_t st, const Src& g,
                         const float* a, const float* b, int R, int K,
                         const Outs& out, const Grads& gr, const DOuts& d) {
-  const int smem = MODE == kModeBulk ? 2 * stage_bytes(kThreads / L, K) : 0;
   if (fwd)
-    fwd_regs<L, MODE><<<grid, kThreads, smem, st>>>(g, a, b, R, K, out);
+    fwd_regs<L><<<grid, kThreads, 0, st>>>(g, a, b, R, K, out);
   else
-    bwd_regs<L, MODE><<<grid, kThreads, smem, st>>>(g, a, b, R, K, gr, d);
+    bwd_regs<L><<<grid, kThreads, 0, st>>>(g, a, b, R, K, gr, d);
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t dispatch_lanes(bool fwd, int grid, cudaStream_t st, const Src& g,
-                           const float* a, const float* b, int R, int K,
-                           const Outs& out, const Grads& gr, const DOuts& d) {
-  switch (lanes_for(K)) {
-    case 1: return launch_regs<1, MODE>(fwd, grid, st, g, a, b, R, K, out, gr, d);
-    case 2: return launch_regs<2, MODE>(fwd, grid, st, g, a, b, R, K, out, gr, d);
-    case 4: return launch_regs<4, MODE>(fwd, grid, st, g, a, b, R, K, out, gr, d);
-    case 8: return launch_regs<8, MODE>(fwd, grid, st, g, a, b, R, K, out, gr, d);
-    case 16: return launch_regs<16, MODE>(fwd, grid, st, g, a, b, R, K, out, gr, d);
-    default: return launch_regs<32, MODE>(fwd, grid, st, g, a, b, R, K, out, gr, d);
-  }
-}
-
-cudaError_t launch(bool fwd, int mode, cudaStream_t st, const Src& g, const float* a,
+cudaError_t launch(bool fwd, cudaStream_t st, const Src& g, const float* a,
                    const float* b, int R, int K, const Outs& out, const Grads& gr,
                    const DOuts& d) {
-  const int grid = grid_for(R, K, mode);
+  const int grid = grid_for(R, K);
   if (!regs_instance(K)) {
     if (fwd)
       fwd_chunked<<<grid, kThreads, 0, st>>>(g, a, b, R, K, out);
@@ -755,9 +643,14 @@ cudaError_t launch(bool fwd, int mode, cudaStream_t st, const Src& g, const floa
       bwd_chunked<<<grid, kThreads, 0, st>>>(g, a, b, R, K, gr, d);
     return cudaGetLastError();
   }
-  if (mode == kModeBulk)
-    return dispatch_lanes<kModeBulk>(fwd, grid, st, g, a, b, R, K, out, gr, d);
-  return dispatch_lanes<kModeVector>(fwd, grid, st, g, a, b, R, K, out, gr, d);
+  switch (lanes_for(K)) {
+    case 1: return launch_regs<1>(fwd, grid, st, g, a, b, R, K, out, gr, d);
+    case 2: return launch_regs<2>(fwd, grid, st, g, a, b, R, K, out, gr, d);
+    case 4: return launch_regs<4>(fwd, grid, st, g, a, b, R, K, out, gr, d);
+    case 8: return launch_regs<8>(fwd, grid, st, g, a, b, R, K, out, gr, d);
+    case 16: return launch_regs<16>(fwd, grid, st, g, a, b, R, K, out, gr, d);
+    default: return launch_regs<32>(fwd, grid, st, g, a, b, R, K, out, gr, d);
+  }
 }
 
 }  // namespace
@@ -772,22 +665,22 @@ int lc_min_rays_per_block() { return kWarps; }
 // Device pointers: sdf/depth [R,K] f32, valid [R,K] u8, delta [R] f32,
 // rgb/normal [R,K,3] f32, alpha/beta scalars; outputs rgb_out/normal_out
 // [R,3], depth_out/op_out [R]. Every pointer 16-byte aligned, 0 < K <=
-// lc_max_k(). mode: 0 vector loads, 1 bulk copies.
+// lc_max_k().
 int lc_forward(const float* sdf, const unsigned char* valid, const float* delta,
                const float* rgb, const float* depth, const float* normal,
                const float* alpha, const float* beta, int R, int K,
                float* rgb_out, float* depth_out, float* normal_out, float* op_out,
-               int mode, void* stream) {
+               void* stream) {
   if (R <= 0) return (int)cudaSuccess;
   const Src g{sdf, depth, rgb, normal, delta, valid};
   const Outs out{rgb_out, depth_out, normal_out, op_out};
-  return (int)launch(true, mode, (cudaStream_t)stream, g, alpha, beta, R, K, out,
+  return (int)launch(true, (cudaStream_t)stream, g, alpha, beta, R, K, out,
                      Grads{}, DOuts{});
 }
 
 // Extra inputs: the per-ray cotangents g_rgb/g_normal [.,3], g_depth/g_op
-// [.], each at element (b * sb + i * sr (+ channel)) for ray r = b * group
-// + i, or nullptr for zero. Outputs d_sdf/d_depth [R,K], d_rgb/d_normal
+// [.], channel ch of ray r = b * group + i at element b * sb + i * sr +
+// ch * sc, or nullptr for zero. Outputs d_sdf/d_depth [R,K], d_rgb/d_normal
 // [R,K,3], d_delta [R] (nullptr: not written), d_ab [2 + 2 * ceil(R /
 // lc_min_rays_per_block())] with (d_alpha, d_beta) in d_ab[0..1] and the
 // rest scratch; ticket: one int, 0 on entry and left 0.
@@ -795,20 +688,23 @@ int lc_backward(const float* sdf, const unsigned char* valid, const float* delta
                 const float* rgb, const float* depth, const float* normal,
                 const float* alpha, const float* beta,
                 const float* g_rgb, long long g_rgb_sb, long long g_rgb_sr,
-                const float* g_depth, long long g_depth_sb, long long g_depth_sr,
-                const float* g_normal, long long g_normal_sb, long long g_normal_sr,
-                const float* g_op, long long g_op_sb, long long g_op_sr, int group,
+                long long g_rgb_sc, const float* g_depth, long long g_depth_sb,
+                long long g_depth_sr, long long g_depth_sc, const float* g_normal,
+                long long g_normal_sb, long long g_normal_sr, long long g_normal_sc,
+                const float* g_op, long long g_op_sb, long long g_op_sr,
+                long long g_op_sc, int group,
                 int R, int K, float* d_sdf, float* d_rgb, float* d_depth,
                 float* d_normal, float* d_delta, float* d_ab, int* ticket,
-                int mode, void* stream) {
+                void* stream) {
   if (R <= 0) return (int)cudaMemsetAsync(d_ab, 0, 2 * sizeof(float),
                                           (cudaStream_t)stream);
   const Src g{sdf, depth, rgb, normal, delta, valid};
   const Grads gr{g_rgb, g_depth, g_normal, g_op,
-                 g_rgb_sb, g_rgb_sr, g_depth_sb, g_depth_sr,
-                 g_normal_sb, g_normal_sr, g_op_sb, g_op_sr, group};
+                 g_rgb_sb, g_rgb_sr, g_rgb_sc, g_depth_sb, g_depth_sr, g_depth_sc,
+                 g_normal_sb, g_normal_sr, g_normal_sc, g_op_sb, g_op_sr, g_op_sc,
+                 group};
   const DOuts d{d_sdf, d_rgb, d_depth, d_normal, d_delta, d_ab, ticket};
-  return (int)launch(false, mode, (cudaStream_t)stream, g, alpha, beta, R, K,
+  return (int)launch(false, (cudaStream_t)stream, g, alpha, beta, R, K,
                      Outs{}, gr, d);
 }
 

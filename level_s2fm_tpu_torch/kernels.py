@@ -49,16 +49,21 @@ def library_path(name: str) -> str:
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` if its library is missing; return the
     library path."""
-    out = library_path(name)
+    return compile_source(os.path.join(CSRC, f"{name}.cu"), library_path(name), name)
+
+
+def compile_source(src: str, out: str, name: str) -> str:
+    """nvcc ``src`` into the shared library ``out`` unless it exists,
+    through a private temporary file renamed into place; the ptxas
+    report goes to ``BUILD_LOG[name]``. Returns ``out``."""
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC, f"{name}.cu")]
+    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n"
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n"
                            f"{proc.stderr}")
     BUILD_LOG[name] = proc.stdout + proc.stderr
     os.replace(tmp, out)

@@ -45,9 +45,6 @@ MAX_K = 2048
 #: fewest rays a block of any launch handles (``lc_min_rays_per_block``):
 #: sizes the per-block dalpha/dbeta slots of the backward
 MIN_RAYS_PER_BLOCK = 4
-#: how a tile reaches the registers: 0 = 16-byte vector loads, 1 = bulk
-#: asynchronous copies into a shared-memory ring (see the CUDA source)
-MODE = 0
 
 
 def reset_launches():
@@ -141,7 +138,7 @@ def check_inputs(sdf, valid, delta, rgb, depth, normal, alpha, beta):
         if t.dtype != dtype or t.device != dev:
             raise ValueError(f"{name}: expected {dtype} on {dev}, got "
                              f"{t.dtype} on {t.device}")
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
@@ -161,23 +158,22 @@ def ray_group(lead):
 
 
 def grad_strides(lead, name, g, channels):
-    """(sb, sr) addressing the per-ray cotangent ``g`` [*lead(,3)]: ray
-    r = b * ray_group(lead) + i sits at element b * sb + i * sr (+
-    channel). A 1- or 2-d lead may be strided (the slices autograd hands
-    back) with adjacent channels; a longer one must be contiguous."""
+    """(sb, sr, sc) addressing the per-ray cotangent ``g`` [*lead(,3)]:
+    channel c of ray r = b * ray_group(lead) + i sits at element b * sb +
+    i * sr + c * sc. A 1- or 2-d lead may have any strides (the slices and
+    broadcasts autograd hands back); a longer one must be contiguous."""
     shape = tuple(lead) + ((channels,) if channels > 1 else ())
-    if g.dtype != torch.float32 or tuple(g.shape) != shape:
+    if g.dtype != torch.float32 or g.shape != shape:
         raise ValueError(f"{name}: expected float32 {shape}, got {g.dtype} "
                          f"{tuple(g.shape)}")
-    if channels > 1 and g.stride(-1) != 1 and g.numel() > 0:
-        raise ValueError(f"{name}: channels must be adjacent")
+    sc = g.stride(-1) if channels > 1 else 0
     if len(lead) == 2:
-        return g.stride(0), g.stride(1)
+        return g.stride(0), g.stride(1), sc
     if len(lead) == 1:
-        return 0, g.stride(0)
+        return 0, g.stride(0), sc
     if not g.is_contiguous():
         raise ValueError(f"{name}: a strided cotangent needs a 1- or 2-d ray shape")
-    return 0, channels
+    return 0, channels, 1
 
 
 # ---------------------------------------------------------------------------
@@ -194,10 +190,10 @@ def _lib():
     lib = kernels.load("composite")
     if not getattr(lib, "_lc_typed", False):
         lib.lc_forward.restype = _I
-        lib.lc_forward.argtypes = [_P] * 8 + [_I, _I] + [_P] * 4 + [_I, _P]
+        lib.lc_forward.argtypes = [_P] * 8 + [_I, _I] + [_P] * 5
         lib.lc_backward.restype = _I
-        lib.lc_backward.argtypes = ([_P] * 8 + [_P, _LL, _LL] * 4
-                                    + [_I, _I, _I] + [_P] * 7 + [_I, _P])
+        lib.lc_backward.argtypes = ([_P] * 8 + [_P, _LL, _LL, _LL] * 4
+                                    + [_I, _I, _I] + [_P] * 8)
         lib.lc_empty.restype = _I
         lib.lc_empty.argtypes = [_P]
         for fn in (lib.lc_max_k, lib.lc_min_rays_per_block):
@@ -215,81 +211,81 @@ def _on_cuda(t):
 
 
 def _launch(dev, fn):
-    """Run ``fn(stream)`` with ``dev`` current; enters no device context
-    when it already is."""
+    """Run ``fn(stream)`` on PyTorch's current stream of ``dev`` (its raw
+    handle); enters no device context when ``dev`` is already current."""
     if dev.index == torch.cuda.current_device():
-        return fn(torch.cuda.current_stream().cuda_stream)
+        return fn(torch._C._cuda_getCurrentRawStream(dev.index))
     with torch.cuda.device(dev):
-        return fn(torch.cuda.current_stream().cuda_stream)
+        return fn(torch._C._cuda_getCurrentRawStream(dev.index))
 
 
-def forward_cuda(sdf, valid, delta, rgb, depth, normal, alpha, beta, mode=None):
+def forward_cuda(sdf, valid, delta, rgb, depth, normal, alpha, beta):
     """Launch ``lc_forward``. Returns (rgb [*lead,3], depth [*lead],
-    normal [*lead,3], opacity [*lead]), views of one buffer."""
+    normal [*lead,3], opacity [*lead])."""
     _on_cuda(sdf)
     R, K = check_inputs(sdf, valid, delta, rgb, depth, normal, alpha, beta)
     lib = _lib()
-    lead = sdf.shape[:-1]
-    buf = torch.empty(8 * R, device=sdf.device, dtype=torch.float32)
-    p = buf.data_ptr()
+    lead = delta.shape
+    rgb_o, nrm_o = rgb.new_empty((*lead, 3)), rgb.new_empty((*lead, 3))
+    dep_o, op_o = delta.new_empty(lead), delta.new_empty(lead)
     st = _launch(sdf.device, lambda stream: lib.lc_forward(
         sdf.data_ptr(), valid.data_ptr(), delta.data_ptr(), rgb.data_ptr(),
         depth.data_ptr(), normal.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-        R, K, p, p + 24 * R, p + 12 * R, p + 28 * R,
-        MODE if mode is None else mode, stream))
+        R, K, rgb_o.data_ptr(), dep_o.data_ptr(), nrm_o.data_ptr(),
+        op_o.data_ptr(), stream))
     kernels.check(st, "lc_forward")
     LAUNCHES["fwd"] += 1
-    return (buf[:3 * R].view(*lead, 3), buf[6 * R:7 * R].view(lead),
-            buf[3 * R:6 * R].view(*lead, 3), buf[7 * R:].view(lead))
+    return rgb_o, dep_o, nrm_o, op_o
 
 
 def backward_cuda(sdf, valid, delta, rgb, depth, normal, alpha, beta,
-                  g_rgb, g_depth, g_normal, g_op, need_delta=True, mode=None):
+                  g_rgb, g_depth, g_normal, g_op, need_delta=True):
     """Launch ``lc_backward``. A cotangent may be None (zero) or strided
     (see ``grad_strides``). Returns (d_sdf, d_delta or None, d_rgb,
-    d_depth, d_normal, d_alpha, d_beta), views of one buffer."""
+    d_depth, d_normal, d_alpha, d_beta)."""
     _on_cuda(sdf)
     R, K = check_inputs(sdf, valid, delta, rgb, depth, normal, alpha, beta)
-    lead = sdf.shape[:-1]
+    lead = delta.shape
     gargs = []
     for name, g, ch in (("g_rgb", g_rgb, 3), ("g_depth", g_depth, 1),
                         ("g_normal", g_normal, 3), ("g_op", g_op, 1)):
         if g is None:
-            gargs += [None, 0, 0]
+            gargs += [None, 0, 0, 0]
             continue
         if g.device != sdf.device:
             raise ValueError(f"{name}: expected a tensor on {sdf.device}")
         gargs += [g.data_ptr(), *grad_strides(lead, name, g, ch)]
     lib = _lib()
-    RK = R * K
-    n_slots = -(-R // MIN_RAYS_PER_BLOCK)
-    buf = torch.empty(8 * RK + R + 2 + 2 * n_slots, device=sdf.device,
-                      dtype=torch.float32)
-    p = buf.data_ptr()
-    key = (sdf.device.index, torch.cuda.current_stream(sdf.device).cuda_stream)
-    ticket = _TICKETS.get(key)
-    if ticket is None:
-        ticket = _TICKETS[key] = torch.zeros(1, device=sdf.device, dtype=torch.int32)
-    st = _launch(sdf.device, lambda stream: lib.lc_backward(
-        sdf.data_ptr(), valid.data_ptr(), delta.data_ptr(), rgb.data_ptr(),
-        depth.data_ptr(), normal.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-        *gargs, ray_group(lead), R, K, p, p + 8 * RK, p + 4 * RK, p + 20 * RK,
-        p + 32 * RK if need_delta else None, p + 4 * (8 * RK + R),
-        ticket.data_ptr(), MODE if mode is None else mode, stream))
-    kernels.check(st, "lc_backward")
+    d_sdf, d_depth = sdf.new_empty(sdf.shape), depth.new_empty(depth.shape)
+    d_rgb, d_nrm = rgb.new_empty(rgb.shape), normal.new_empty(normal.shape)
+    d_delta = delta.new_empty(lead) if need_delta else None
+    # d_alpha, d_beta, then one (d_alpha, d_beta) slot per block
+    d_ab = delta.new_empty(2 + 2 * -(-R // MIN_RAYS_PER_BLOCK))
+
+    def run(stream):
+        ticket = _TICKETS.get((sdf.device.index, stream))
+        if ticket is None:
+            ticket = _TICKETS[sdf.device.index, stream] = torch.zeros(
+                1, device=sdf.device, dtype=torch.int32)
+        return lib.lc_backward(
+            sdf.data_ptr(), valid.data_ptr(), delta.data_ptr(), rgb.data_ptr(),
+            depth.data_ptr(), normal.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+            *gargs, ray_group(lead), R, K, d_sdf.data_ptr(), d_rgb.data_ptr(),
+            d_depth.data_ptr(), d_nrm.data_ptr(),
+            None if d_delta is None else d_delta.data_ptr(), d_ab.data_ptr(),
+            ticket.data_ptr(), stream)
+
+    kernels.check(_launch(sdf.device, run), "lc_backward")
     LAUNCHES["bwd"] += 1
-    d_ab = buf[8 * RK + R:]
-    return (buf[:RK].view(*lead, K),
-            buf[8 * RK:8 * RK + R].view(lead) if need_delta else None,
-            buf[2 * RK:5 * RK].view(*lead, K, 3), buf[RK:2 * RK].view(*lead, K),
-            buf[5 * RK:8 * RK].view(*lead, K, 3), d_ab[0], d_ab[1])
+    return d_sdf, d_delta, d_rgb, d_depth, d_nrm, d_ab[0], d_ab[1]
 
 
 def empty_cuda():
     """Launch an empty kernel through the same ctypes path: the floor a
     launch of this library costs (timed by ``chip_smoke.py``)."""
     lib = _lib()
-    kernels.check(lib.lc_empty(torch.cuda.current_stream().cuda_stream), "lc_empty")
+    kernels.check(_launch(torch.device("cuda", torch.cuda.current_device()),
+                          lib.lc_empty), "lc_empty")
 
 
 # ---------------------------------------------------------------------------

@@ -242,21 +242,35 @@ def test_check_inputs_rejects_bad_inputs(case):
         fc.check_inputs(*t)
 
 
-@pytest.mark.parametrize("case", ["shape", "dtype", "channels", "lead3_strided"])
+_FULL = torch.arange(2 * 10 * 3, dtype=torch.float32).reshape(2, 10, 3)
+_GRADS = {  # per-ray cotangents [2,4,3] as autograd may hand them back
+    "slice": _FULL[:, 2:6],                                  # ray_chunk slices
+    "broadcast": torch.ones(()).expand(2, 4, 3),             # from a .sum()
+    "channels_strided": torch.arange(60.0).reshape(2, 3, 10).transpose(1, 2)[:, 2:6],
+    "contiguous": _FULL[:, :4].contiguous(),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GRADS) + ["shape", "dtype", "lead3_strided"])
 def test_grad_strides_addressing_and_rejects(case):
     """Cotangent addressing: a strided [B,HW,3] slice (what autograd hands
-    back from the renderer's chunk concatenation) is addressed in place;
-    wrong shapes, dtypes, channel strides and strided 3-d leads raise."""
-    full = torch.arange(2 * 10 * 3, dtype=torch.float32).reshape(2, 10, 3)
-    g = full[:, 2:6]
-    sb, sr = fc.grad_strides((2, 4), "g", g, 3)
-    group = fc.ray_group((2, 4))
-    flat = full.reshape(-1)[g.storage_offset():]   # what g.data_ptr() points at
-    for r in range(8):
-        b, i = divmod(r, group)
-        assert torch.equal(flat[b * sb + i * sr + torch.arange(3)], g[b, i])
+    back from the renderer's chunk concatenation), a broadcast and other
+    strides are addressed in place, element by element; wrong shapes,
+    dtypes and strided leads of more than two dims raise."""
+    if case in _GRADS:
+        g = _GRADS[case]
+        sb, sr, sc = fc.grad_strides((2, 4), "g", g, 3)
+        group = fc.ray_group((2, 4))
+        base = g.storage_offset()                     # what g.data_ptr() points at
+        store = g.untyped_storage()
+        flat = torch.tensor([], dtype=g.dtype).set_(store)
+        for r in range(8):
+            b, i = divmod(r, group)
+            got = flat[base + b * sb + i * sr + sc * torch.arange(3)]
+            assert torch.equal(got, g[b, i])
+        return
+    g = _GRADS["slice"]
     bad = {"shape": ((2, 5), g, 3), "dtype": ((2, 4), g.double(), 3),
-           "channels": ((2, 4), torch.zeros(2, 3, 4).transpose(1, 2), 3),
            "lead3_strided": ((1, 2, 4), g[None], 3)}[case]
     with pytest.raises(ValueError):
         fc.grad_strides(bad[0], "g", bad[1], bad[2])
@@ -265,25 +279,36 @@ def test_grad_strides_addressing_and_rejects(case):
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_gpu(gpu):
     """Both instances (registers: K <= 128, K % 4 == 0; chunked: the rest)
-    and both load modes against the plain versions (atol 2e-4; dalpha/
-    dbeta rtol 1e-4), the per-ray d_delta included, and a backward run
-    twice is bitwise equal."""
+    against the plain versions (atol 2e-4; dalpha/dbeta rtol 1e-4), the
+    per-ray d_delta included, and a backward run twice is bitwise equal."""
     for R, K in ((8192, 32), (1000, 32), (257, 128), (37, 40), (300, 257), (37, 10)):
         args, g = _inputs(R, K, seed=K)
         t = [a.cuda() for a in _torch(args)]
         gg = [a.cuda() for a in _torch(g)]
         out_r = fc._forward_ref(*t)
         br = fc._backward_ref(tuple(t), tuple(gg))
-        for mode in (0, 1):
-            out_k = fc.forward_cuda(*t, mode=mode)
-            for a, b in zip(out_k, out_r):
+        out_k = fc.forward_cuda(*t)
+        for a, b in zip(out_k, out_r):
+            torch.testing.assert_close(a, b, rtol=0, atol=ATOL)
+        bk = fc.backward_cuda(*t, *gg)
+        for i, (a, b) in enumerate(zip(bk, br)):
+            if i >= 5:
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+            else:
                 torch.testing.assert_close(a, b, rtol=0, atol=ATOL)
-            bk = fc.backward_cuda(*t, *gg, mode=mode)
-            for i, (a, b) in enumerate(zip(bk, br)):
-                if i >= 5:
-                    torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
-                else:
-                    torch.testing.assert_close(a, b, rtol=0, atol=ATOL)
-            again = fc.backward_cuda(*t, *gg, mode=mode)
-            for a, b in zip(bk, again):
-                assert torch.equal(a, b)
+        again = fc.backward_cuda(*t, *gg)
+        for a, b in zip(bk, again):
+            assert torch.equal(a, b)
+    # cotangents as autograd hands them back: a strided slice, a broadcast
+    R, K = 300, 32
+    args, g = _inputs(R, K, seed=1)
+    t = [a.cuda() for a in _torch(args)]
+    g_rgb = torch.randn(2 * R, 3, device="cuda")[::2]
+    g_op = torch.ones((), device="cuda").expand(R)
+    br = fc._backward_ref(tuple(t), (g_rgb, None, None, g_op))
+    bk = fc.backward_cuda(*t, g_rgb, None, None, g_op)
+    for i, (a, b) in enumerate(zip(bk, br)):
+        if i >= 5:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=ATOL)
