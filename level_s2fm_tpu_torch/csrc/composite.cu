@@ -132,7 +132,7 @@ __device__ __forceinline__ float seg_excl_suffix(float v, int li) {
   return x;
 }
 
-// A tile's inputs, indexed by the ray's place in the tile.
+// The inputs, in the renderer's layout.
 struct Src {
   const float* sdf;
   const float* depth;
@@ -164,7 +164,8 @@ __device__ __forceinline__ void pack12(float4* p, const float (&v)[kSpl][3]) {
 }
 
 // samples e..e+3 (e % 4 == 0) by 16-byte vectors; zeros when !in
-__device__ __forceinline__ void load_vec(Samples& x, const Src& s, int e, bool in) {
+__device__ __forceinline__ void load_vec(Samples& x, const Src& s, long long e,
+                                         bool in) {
   if (in) {
     const float4 a = *reinterpret_cast<const float4*>(s.sdf + e);
     const float4 d = *reinterpret_cast<const float4*>(s.depth + e);
@@ -277,113 +278,6 @@ struct BwdLane {
   float d_sdf[kSpl], d_depth[kSpl], d_rgb[kSpl][3], d_nrm[kSpl][3];
 };
 
-// ------------------------------------------------- forward, register instance
-
-template <int L>
-__device__ __forceinline__ void fwd_tile(const Src& src, int t, int TR, int R, int K,
-                                         Coeffs c, const Outs& out) {
-  const int rl = threadIdx.x / L, li = threadIdx.x % L;
-  const int r = t * TR + rl;
-  const bool ray_in = r < R;
-  Samples x;
-  load_vec(x, src, rl * K + kSpl * li, ray_in && kSpl * li < K);
-  const float delta = ray_in ? src.delta[rl] : 0.f;
-  float expabs[kSpl], psi[kSpl], sigma[kSpl], s[kSpl];
-  sample_s(x, delta, c, expabs, psi, sigma, s);
-  const float lane_s = (s[0] + s[1]) + (s[2] + s[3]);
-  float T[kSpl], es[kSpl], w[kSpl];
-  weights(s, seg_excl_prefix<L>(lane_s, li), T, es, w);
-  float acc_r[3] = {0.f, 0.f, 0.f}, acc_n[3] = {0.f, 0.f, 0.f};
-  float acc_d = 0.f, acc_w = 0.f;
-#pragma unroll
-  for (int i = 0; i < kSpl; ++i) {
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      acc_r[ch] += w[i] * x.rgb[i][ch];
-      acc_n[ch] += w[i] * x.nrm[i][ch];
-    }
-    acc_d += w[i] * x.depth[i];
-    acc_w += w[i];
-  }
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    acc_r[ch] = seg_sum<L>(acc_r[ch]);
-    acc_n[ch] = seg_sum<L>(acc_n[ch]);
-  }
-  acc_d = seg_sum<L>(acc_d);
-  acc_w = seg_sum<L>(acc_w);
-  if (ray_in && li == 0) {
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      out.rgb[3 * r + ch] = acc_r[ch];
-      out.nrm[3 * r + ch] = acc_n[ch];
-    }
-    out.depth[r] = acc_d;
-    out.op[r] = acc_w;
-  }
-}
-
-// ------------------------------------------------ backward, register instance
-
-template <int L>
-__device__ __forceinline__ void bwd_tile(const Src& src, int t, int TR, int R, int K,
-                                         Coeffs c, const Grads& g, const DOuts& d,
-                                         float& pa, float& pb) {
-  const int rl = threadIdx.x / L, li = threadIdx.x % L;
-  const int r = t * TR + rl;
-  const bool ray_in = r < R;
-  const bool in = ray_in && kSpl * li < K;
-  Samples x;
-  load_vec(x, src, rl * K + kSpl * li, in);
-  const float delta = ray_in ? src.delta[rl] : 0.f;
-  const RayGrad q = ray_in ? load_grad(g, r) : RayGrad{};
-  float expabs[kSpl], psi[kSpl], sigma[kSpl], s[kSpl];
-  sample_s(x, delta, c, expabs, psi, sigma, s);
-  const float lane_s = (s[0] + s[1]) + (s[2] + s[3]);
-  float T[kSpl], es[kSpl], w[kSpl], G[kSpl], Gw[kSpl];
-  weights(s, seg_excl_prefix<L>(lane_s, li), T, es, w);
-#pragma unroll
-  for (int i = 0; i < kSpl; ++i) {
-    G[i] = q.r[0] * x.rgb[i][0] + q.r[1] * x.rgb[i][1] + q.r[2] * x.rgb[i][2]
-           + q.d * x.depth[i]
-           + q.n[0] * x.nrm[i][0] + q.n[1] * x.nrm[i][1] + q.n[2] * x.nrm[i][2]
-           + q.o;
-    Gw[i] = G[i] * w[i];
-  }
-  const float lane_gw = (Gw[0] + Gw[1]) + (Gw[2] + Gw[3]);
-  float suffix = seg_excl_suffix<L>(lane_gw, li);
-  BwdLane o;
-  float dd = 0.f;
-#pragma unroll
-  for (int i = kSpl - 1; i >= 0; --i) {
-    const float dL_ds = G[i] * T[i] * es[i] - suffix;
-    suffix += Gw[i];
-    const float dL_dsigma = dL_ds * delta;
-    dd += dL_ds * sigma[i];
-    o.d_sdf[i] = dL_dsigma * x.valid[i] * c.alpha * (-0.5f * c.inv_b) * expabs[i];
-    o.d_depth[i] = q.d * w[i];
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      o.d_rgb[i][ch] = q.r[ch] * w[i];
-      o.d_nrm[i][ch] = q.n[ch] * w[i];
-    }
-    pa += dL_dsigma * x.valid[i] * psi[i];
-    pb += dL_dsigma * x.valid[i] * c.alpha
-          * (0.5f * x.sdf[i] * c.inv_b * c.inv_b) * expabs[i];
-  }
-  if (in) {
-    const long long e = (long long)r * K + kSpl * li;
-    *reinterpret_cast<float4*>(d.sdf + e) =
-        make_float4(o.d_sdf[0], o.d_sdf[1], o.d_sdf[2], o.d_sdf[3]);
-    *reinterpret_cast<float4*>(d.depth + e) =
-        make_float4(o.d_depth[0], o.d_depth[1], o.d_depth[2], o.d_depth[3]);
-    pack12(reinterpret_cast<float4*>(d.rgb + 3 * e), o.d_rgb);
-    pack12(reinterpret_cast<float4*>(d.nrm + 3 * e), o.d_nrm);
-  }
-  dd = seg_sum<L>(dd);
-  if (d.delta && ray_in && li == 0) d.delta[r] = dd;
-}
-
 // Block partials in a fixed order, then the last block (integer ticket)
 // sums every block's slot in block order into d_ab[0..1]. Only thread 0's
 // slot store has to reach the last block: its ticket increment releases
@@ -444,32 +338,116 @@ __device__ void reduce_ab(float pa, float pb, const DOuts& d) {
   }
 }
 
-// ------------------------------------------------------- tile sources
+// ------------------------------------------------- forward, register instance
 
-// The tile t's slabs in device memory.
-__device__ __forceinline__ Src tile_src(const Src& g, int t, int TR, int K) {
-  const long long e = (long long)t * TR * K;
-  return Src{g.sdf + e, g.depth + e, g.rgb + 3 * e, g.nrm + 3 * e,
-             g.delta + (long long)t * TR, g.valid + e};
-}
-
+// A block is a tile of kThreads / L rays; lane li of a ray's segment owns
+// its samples kSpl * li .. kSpl * li + 3.
 template <int L>
 __global__ void __launch_bounds__(kThreads)
 fwd_regs(Src g, const float* __restrict__ alpha_p, const float* __restrict__ beta_p,
          int R, int K, Outs out) {
   const Coeffs c{*alpha_p, 1.f / *beta_p};
-  constexpr int TR = kThreads / L;
-  fwd_tile<L>(tile_src(g, blockIdx.x, TR, K), blockIdx.x, TR, R, K, c, out);
+  const int li = threadIdx.x % L;
+  const int r = blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  const bool ray_in = r < R;
+  Samples x;
+  load_vec(x, g, (long long)r * K + kSpl * li, ray_in && kSpl * li < K);
+  const float delta = ray_in ? g.delta[r] : 0.f;
+  float expabs[kSpl], psi[kSpl], sigma[kSpl], s[kSpl];
+  sample_s(x, delta, c, expabs, psi, sigma, s);
+  const float lane_s = (s[0] + s[1]) + (s[2] + s[3]);
+  float T[kSpl], es[kSpl], w[kSpl];
+  weights(s, seg_excl_prefix<L>(lane_s, li), T, es, w);
+  float acc_r[3] = {0.f, 0.f, 0.f}, acc_n[3] = {0.f, 0.f, 0.f};
+  float acc_d = 0.f, acc_w = 0.f;
+#pragma unroll
+  for (int i = 0; i < kSpl; ++i) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      acc_r[ch] += w[i] * x.rgb[i][ch];
+      acc_n[ch] += w[i] * x.nrm[i][ch];
+    }
+    acc_d += w[i] * x.depth[i];
+    acc_w += w[i];
+  }
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    acc_r[ch] = seg_sum<L>(acc_r[ch]);
+    acc_n[ch] = seg_sum<L>(acc_n[ch]);
+  }
+  acc_d = seg_sum<L>(acc_d);
+  acc_w = seg_sum<L>(acc_w);
+  if (ray_in && li == 0) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      out.rgb[3 * r + ch] = acc_r[ch];
+      out.nrm[3 * r + ch] = acc_n[ch];
+    }
+    out.depth[r] = acc_d;
+    out.op[r] = acc_w;
+  }
 }
+
+// ------------------------------------------------ backward, register instance
 
 template <int L>
 __global__ void __launch_bounds__(kThreads)
 bwd_regs(Src g, const float* __restrict__ alpha_p, const float* __restrict__ beta_p,
          int R, int K, Grads gr, DOuts d) {
   const Coeffs c{*alpha_p, 1.f / *beta_p};
-  constexpr int TR = kThreads / L;
-  float pa = 0.f, pb = 0.f;
-  bwd_tile<L>(tile_src(g, blockIdx.x, TR, K), blockIdx.x, TR, R, K, c, gr, d, pa, pb);
+  const int li = threadIdx.x % L;
+  const int r = blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  const bool ray_in = r < R;
+  const bool in = ray_in && kSpl * li < K;
+  const long long e = (long long)r * K + kSpl * li;
+  Samples x;
+  load_vec(x, g, e, in);
+  const float delta = ray_in ? g.delta[r] : 0.f;
+  const RayGrad q = ray_in ? load_grad(gr, r) : RayGrad{};
+  float expabs[kSpl], psi[kSpl], sigma[kSpl], s[kSpl];
+  sample_s(x, delta, c, expabs, psi, sigma, s);
+  const float lane_s = (s[0] + s[1]) + (s[2] + s[3]);
+  float T[kSpl], es[kSpl], w[kSpl], G[kSpl], Gw[kSpl];
+  weights(s, seg_excl_prefix<L>(lane_s, li), T, es, w);
+#pragma unroll
+  for (int i = 0; i < kSpl; ++i) {
+    G[i] = q.r[0] * x.rgb[i][0] + q.r[1] * x.rgb[i][1] + q.r[2] * x.rgb[i][2]
+           + q.d * x.depth[i]
+           + q.n[0] * x.nrm[i][0] + q.n[1] * x.nrm[i][1] + q.n[2] * x.nrm[i][2]
+           + q.o;
+    Gw[i] = G[i] * w[i];
+  }
+  const float lane_gw = (Gw[0] + Gw[1]) + (Gw[2] + Gw[3]);
+  float suffix = seg_excl_suffix<L>(lane_gw, li);
+  BwdLane o;
+  float dd = 0.f, pa = 0.f, pb = 0.f;  // d_delta, dalpha, dbeta partials
+#pragma unroll
+  for (int i = kSpl - 1; i >= 0; --i) {
+    const float dL_ds = G[i] * T[i] * es[i] - suffix;
+    suffix += Gw[i];
+    const float dL_dsigma = dL_ds * delta;
+    dd += dL_ds * sigma[i];
+    o.d_sdf[i] = dL_dsigma * x.valid[i] * c.alpha * (-0.5f * c.inv_b) * expabs[i];
+    o.d_depth[i] = q.d * w[i];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      o.d_rgb[i][ch] = q.r[ch] * w[i];
+      o.d_nrm[i][ch] = q.n[ch] * w[i];
+    }
+    pa += dL_dsigma * x.valid[i] * psi[i];
+    pb += dL_dsigma * x.valid[i] * c.alpha
+          * (0.5f * x.sdf[i] * c.inv_b * c.inv_b) * expabs[i];
+  }
+  if (in) {
+    *reinterpret_cast<float4*>(d.sdf + e) =
+        make_float4(o.d_sdf[0], o.d_sdf[1], o.d_sdf[2], o.d_sdf[3]);
+    *reinterpret_cast<float4*>(d.depth + e) =
+        make_float4(o.d_depth[0], o.d_depth[1], o.d_depth[2], o.d_depth[3]);
+    pack12(reinterpret_cast<float4*>(d.rgb + 3 * e), o.d_rgb);
+    pack12(reinterpret_cast<float4*>(d.nrm + 3 * e), o.d_nrm);
+  }
+  dd = seg_sum<L>(dd);
+  if (d.delta && ray_in && li == 0) d.delta[r] = dd;
   reduce_ab(pa, pb, d);
 }
 

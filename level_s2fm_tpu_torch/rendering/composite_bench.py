@@ -68,8 +68,8 @@ _TICKET = '''    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\\n"
 VARIANTS = {
     "no_dab_reduction": [("  reduce_ab(pa, pb, d);\n}",
                           "  if (pa == 12345.f) d.ab[0] = pb;\n}")],
-    "no_sample_stores": [("  if (in) {\n    const long long e = (long long)r * K",
-                          "  if (in && pa == 12345.f) {\n    const long long e = (long long)r * K")],
+    "no_sample_stores": [("  if (in) {\n    *reinterpret_cast<float4*>(d.sdf + e) =",
+                          "  if (in && pa == 12345.f) {\n    *reinterpret_cast<float4*>(d.sdf + e) =")],
     "fence_then_atomicadd": [
         (_TICKET, "    __threadfence();\n    ticket = atomicAdd(d.ticket, 1);"),
         ("  if (!last) return;\n", "  if (!last) return;\n  __threadfence();\n")],

@@ -244,8 +244,17 @@ def backward_cuda(sdf, valid, delta, rgb, depth, normal, alpha, beta,
     (see ``grad_strides``). Returns (d_sdf, d_delta or None, d_rgb,
     d_depth, d_normal, d_alpha, d_beta)."""
     _on_cuda(sdf)
-    R, K = check_inputs(sdf, valid, delta, rgb, depth, normal, alpha, beta)
-    lead = delta.shape
+    check_inputs(sdf, valid, delta, rgb, depth, normal, alpha, beta)
+    return _backward_launch(sdf, valid, delta, rgb, depth, normal, alpha, beta,
+                            g_rgb, g_depth, g_normal, g_op, need_delta)
+
+
+def _backward_launch(sdf, valid, delta, rgb, depth, normal, alpha, beta,
+                     g_rgb, g_depth, g_normal, g_op, need_delta):
+    """``backward_cuda`` for inputs that passed ``check_inputs`` (the
+    autograd op's saved tensors, checked by its forward)."""
+    lead, K = delta.shape, sdf.shape[-1]
+    R = delta.numel()
     gargs = []
     for name, g, ch in (("g_rgb", g_rgb, 3), ("g_depth", g_depth, 1),
                         ("g_normal", g_normal, 3), ("g_op", g_op, 1)):
@@ -311,14 +320,12 @@ class LaplaceComposite(torch.autograd.Function):
         alpha, beta = res[6], res[7]
         need_delta = ctx.needs_input_grad[2]
         if res[0].is_cuda:
-            d = backward_cuda(*res, g_rgb, g_depth, g_normal, g_op,
-                              need_delta=need_delta)
+            d = _backward_launch(*res, g_rgb, g_depth, g_normal, g_op, need_delta)
         else:
             d = _backward_ref(res, (g_rgb, g_depth, g_normal, g_op))
         d_sdf, d_delta, d_rgb, d_depth, d_normal, d_a, d_b = d
         return (d_sdf, None, d_delta if need_delta else None, d_rgb, d_depth,
-                d_normal, d_a.reshape(alpha.shape).to(alpha.dtype),
-                d_b.reshape(beta.shape).to(beta.dtype))
+                d_normal, d_a.reshape(alpha.shape), d_b.reshape(beta.shape))
 
 
 def laplace_composite(sdf, valid, delta, rgb, depth, normal, alpha, beta):
