@@ -179,8 +179,12 @@ def test_composite_fused_adapter_matches_jax():
                                   jnp.asarray(valid), deltas, jnp.asarray(depth),
                                   jnp.asarray(normals), 20.0, 0.05, use_pallas=False)
 
-    j, vjp = jax.vjp(jfn, jnp.asarray(ray), jnp.asarray(bin_w))
-    j_dray, j_dbin = vjp(tuple(jnp.asarray(c) for c in cot))
+    def jall(ray_, bin_w_, cot_):
+        out, vjp = jax.vjp(jfn, ray_, bin_w_)
+        return out, vjp(cot_)
+
+    j, (j_dray, j_dbin) = jax.jit(jall)(jnp.asarray(ray), jnp.asarray(bin_w),
+                                        tuple(jnp.asarray(c) for c in cot))
     t_ray = torch.tensor(ray, requires_grad=True)
     t_bin = torch.tensor(bin_w, requires_grad=True)
     t = fc.composite_fused(t_ray, torch.tensor(rgbs), torch.tensor(sdfs),
