@@ -20,17 +20,40 @@ failure raises and exits non-zero):
    tensors at the main shape: host ms per call and device launches per
    call from a torch.profiler trace (at most 4: K1, K2 and two ops on
    [R] for the per-ray delta).
-4. reference — one InitPhase step of a tiny configuration on the CPU
-   (plain versions) and on the GPU (kernels) from the same weights and
-   rays: every loss term must agree.
-5. init — the main path: ``LevelSfM.train`` two-view initialization of
-   the synthetic scene at the full width of ``configs/levels2fm.yaml``
-   (hash 16 levels x 2 features x 2^19 with bf16 reads, SDF MLP
-   [.,64,16], radiance MLP [.,64,64,3], 8192 rays, 128 samples
-   compacted to 32, occupancy 64^3, 20 march steps) on 128x128 images,
-   with the step count cut to ``INIT_STEPS``. Launch counts are zeroed
-   just before and read just after; losses must be finite and the rgb
-   loss must fall.
+4. reference — one step each of InitPhase, GeoInitPhase, BAPhase
+   ('sfm', and 'sfm_refine' on one camera, whose se3 gradient flows
+   through K1/K2) and RefinePhase at a tiny configuration on the CPU
+   (plain versions) and on the GPU (kernels), from the same state and
+   the same injected draws: every loss term must agree to 1e-3 relative
+   (of max(|value|, 1e-4)), the se3 gradient to 1e-3 of its largest
+   entry.
+5. init — the first main path: ``LevelSfM.train`` two-view
+   initialization of the synthetic scene at the full width of
+   ``configs/levels2fm.yaml`` (hash 16 levels x 2 features x 2^19 with
+   bf16 reads, SDF MLP [.,64,16], radiance MLP [.,64,64,3], 8192 rays,
+   128 samples compacted to 32, occupancy 64^3, 20 march steps, geoinit
+   max_rays 2048) on 128x128 images, with the step count cut to
+   ``INIT_STEPS``. Losses must be finite and the rgb loss must fall.
+6. register — the second main path: the same model goes on to register
+   views 3 and 4 (``sfm_mode: full``: PnP, geoinit, one single-camera
+   sfm_refine BA, up to 5 local and 5 global BA cycles, refine). Depth
+   is cut to the iteration counts of ``configs/synthetic.yaml`` (geoinit
+   30 x 5 steps, BA 150, refine 100; the full config's 100 x 5, 1000,
+   500). Every view must register and every loss stay finite. Per view
+   it prints PnP inliers, the triangulation ratio, the pose errors and
+   the wall s per stage; then, on copies of the final state, the steady
+   ms per step and the device-busy share of each phase; then K1/K2 are
+   held to their plain versions at every shape the run launched.
+7. bands — the 3-view ``--sfm_mode=fast`` run at
+   ``configs/synthetic.yaml`` as it stands, under
+   ``torch.use_deterministic_algorithms`` so that its verdict repeats
+   from run to run; each final value must be
+   within 2x of the known-good values (reproj 0.315 px, rot 6.0 deg, t
+   0.018), and the relative rotations within the E2E oracles (views 0-1
+   < 5 deg, 0-2 < 8 deg).
+
+Each main path is driven with the launch counts set to 0 just before it
+and read just after; K1 and K2 must have launched in both.
 
 The last lines of stdout are the card's name and power limit, the
 kernels' JSON line and ``{"ok": true, "device": {...}}``.
@@ -58,6 +81,12 @@ FULL_WIDTH_ARGS = [
 ]
 # the config's optim.init.max_iter of 500, cut so the run fits the time limit
 INIT_STEPS = 100
+#: views of the synthetic scene the register phase brings in
+REGISTER_VIEWS = 4
+#: known-good final values of the 3-view fast run (the JAX package on the
+#: CPU) and the factor a value may reach before the bands phase fails
+BANDS = {"reproj_px": 0.315, "rot_err_deg": 6.0, "t_err": 0.018}
+BANDS_FACTOR = 2.0
 
 TINY_ARGS = [
     "--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
@@ -68,6 +97,9 @@ TINY_ARGS = [
     "--Renderer.rand_rays=512", "--Renderer.compact_samples=8",
     "--Renderer.occ_res=16", "--optim.init.max_iter=1",
 ]
+#: a loss of the CPU-vs-GPU reference steps agrees to this, relative to
+#: max(|value|, REF_FLOOR)
+REF_RTOL, REF_FLOOR = 1e-3, 1e-4
 
 
 def log(*a):
@@ -106,16 +138,16 @@ COMPOSITE_SHAPES = [(4096, 32), (8192, 32), (1000, 32), (257, 128), (300, 257),
                     (65536, 32)]
 
 
-def phase_kernels(main_shape):
-    """K1/K2 against their plain versions, timed; returns per-kernel records."""
+def hold_composite(shapes, dev, tag="kernels"):
+    """K1/K2 against their plain versions at each (R, K) of ``shapes``
+    (atol 2e-4, d_alpha/d_beta 1e-4 relative); the backward must repeat
+    bit for bit. Returns the largest errors {"fwd", "bwd"}."""
     import torch
-    from level_s2fm_tpu_torch import devtime
     from level_s2fm_tpu_torch.rendering import composite_bench
     from level_s2fm_tpu_torch.rendering import fused_composite as fc
-    dev = torch.device("cuda")
     atol, rtol_ab = 2e-4, 1e-4
     err = {"fwd": 0.0, "bwd": 0.0}
-    for R, K in COMPOSITE_SHAPES:
+    for R, K in shapes:
         args, grads = composite_bench.composite_inputs(R, K, R + K, dev)
         out_r = fc._forward_ref(*args)
         bwd_r = fc._backward_ref(tuple(args), tuple(grads))
@@ -128,7 +160,7 @@ def phase_kernels(main_shape):
         e_ab = max(float((x - y).abs() / y.abs().clamp_min(1e-30))
                    for x, y in zip(bwd_k[5:], bwd_r[5:]))
         same = all(torch.equal(x, y) for x, y in zip(bwd_k, again))
-        log(f"[kernels] R={R} K={K}: fwd max_abs_err={e_f:.3e} "
+        log(f"[{tag}] R={R} K={K}: fwd max_abs_err={e_f:.3e} "
             f"bwd max_abs_err={e_b:.3e} d_alpha/d_beta rel_err={e_ab:.3e} "
             f"bwd bitwise repeatable={same}")
         assert e_f <= atol and e_b <= atol, (R, K, e_f, e_b)
@@ -137,6 +169,17 @@ def phase_kernels(main_shape):
         err["fwd"] = max(err["fwd"], e_f)
         err["bwd"] = max(err["bwd"], e_b)
         del out_r, bwd_r, out_k, bwd_k, again
+    return err
+
+
+def phase_kernels(main_shape):
+    """K1/K2 against their plain versions, timed; returns per-kernel records."""
+    import torch
+    from level_s2fm_tpu_torch import devtime
+    from level_s2fm_tpu_torch.rendering import composite_bench
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    dev = torch.device("cuda")
+    err = hold_composite(COMPOSITE_SHAPES, dev)
 
     floor_ms, floor_host = devtime.time_ms(fc.empty_cuda)
     log(f"[kernels] empty kernel through the same ctypes path: device "
@@ -288,15 +331,112 @@ def phase_reference():
                               rays_idx=torch.arange(HW))
         losses[dev] = {k: float(v) for k, v in met.items()}
     assert fc.LAUNCHES["fwd"] > launches["fwd"] and fc.LAUNCHES["bwd"] > launches["bwd"]
+    _compare_losses("InitPhase", losses["cpu"], losses["cuda"])
+    _reference_registration()
+
+
+def _compare_losses(name, cpu, gpu):
     worst = 0.0
-    for k, v in losses["cpu"].items():
-        g = losses["cuda"][k]
-        rel = abs(g - v) / max(abs(v), 1e-6)
+    for k, v in cpu.items():
+        rel = abs(gpu[k] - v) / max(abs(v), REF_FLOOR)
         worst = max(worst, rel)
-        assert rel < 1e-3, (k, v, g)
-    log(f"[reference] tiny InitPhase step, CPU plain vs GPU kernels: worst loss "
-        f"rel diff {worst:.2e} (bar 1e-3): "
-        + json.dumps({k: round(v, 6) for k, v in losses["cuda"].items()}))
+        assert rel <= REF_RTOL, (name, k, v, gpu[k])
+    log(f"[reference] tiny {name} step, CPU plain vs GPU kernels: worst loss "
+        f"rel diff {worst:.2e} (bar {REF_RTOL:g} of max(|v|, {REF_FLOOR:g})): "
+        + json.dumps({k: round(v, 6) for k, v in gpu.items()}))
+
+
+def _reference_registration():
+    """One step each of GeoInitPhase, BAPhase('sfm') over three views,
+    BAPhase('sfm_refine') on view 2 alone (its se3 gradient flows through
+    K1/K2) and RefinePhase, on the CPU (plain versions) and on the GPU
+    (kernels): the same tiny two-view init (trained on the CPU), the
+    same PnP registration of view 2 and the same draws on both."""
+    import torch
+    from level_s2fm_tpu_torch.config import build_options
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    from level_s2fm_tpu_torch.sfm import bundle, entities, registration
+    from level_s2fm_tpu_torch.sfm.phases import GeoInitPhase
+    from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
+    from level_s2fm_tpu_torch.train import build_var
+
+    opt = build_options(TINY_ARGS + ["--data.n_views=3", "--optim.init.max_iter=3"])
+    m = LevelSfM(opt, seed=0, device="cpu")
+    m.load_data(build_var(opt))
+    m.train(max_views=2, verbose=False)
+    reg = registration.Registration(opt, m.cfgs, m.camera_set)
+    cam = m._make_camera(2)
+    assert reg.pnp(m.params, cam, m.point_set, if_nbv=True)[0]
+    m.camera_set.add(cam)
+    segs, host = reg.geo_init_batch(cam, m.point_set, verbose=False)
+    g = torch.Generator().manual_seed(5)
+    P, E = host["valid"].shape[0], host["pts_exists"].shape[0]
+    n_pick = min(4096, 2 * P)
+    draws = {"factor_rand": torch.rand(2 * P, generator=g),
+             "pick": torch.randperm(2 * P, generator=g)[:n_pick],
+             "pick2": torch.randperm(n_pick * m.cfgs.sdf.iters_max + 2 * P,
+                                     generator=g)[:4096]}
+    exist_pick = torch.randperm(E, generator=g)[:min(4096, E)]
+    HW = m.cfgs.H * m.cfgs.W
+    rays = torch.randperm(HW, generator=g)
+    og = opt.optim.geoinit
+    res = {}
+    for dev in ("cpu", "cuda"):
+        r = res[dev] = {}
+        ph = GeoInitPhase(m.cfgs, dict(opt.loss_weight.geoinit),
+                          n_segments=entities.pad_to_bucket(
+                              len(segs), buckets=(2, 4, 8, 16, 32, 64)),
+                          lr_sdf=float(og.lr_sdf), lr_sdf_end=float(og.lr_sdf_end),
+                          max_iter=int(og.max_iter) * 5)
+        st = ph.init_state(_tree_to(m.params, dev))
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+        r["GeoInitPhase"] = ph.step(st, batch, None, draws=draws,
+                                    exist_pick=exist_pick)
+        b = bundle.Bundler(opt, m.cfgs, m.camera_set, m.point_set,
+                           cam_pick_ids=[2, 0, 1], mode="sfm", device=dev)
+        st = b.phase.init_state(_ba_params(m, b, dev), b.xyzs0.clone())
+        r["BAPhase sfm"] = b.phase.step(st, b.batch, None)
+        b = bundle.Bundler(opt, m.cfgs, m.camera_set, m.point_set,
+                           cam_pick_ids=[2], mode="sfm_refine", device=dev)
+        params = _ba_params(m, b, dev)
+        st = b.phase.init_state(params, b.xyzs0.clone())
+        batch = dict(b.batch)
+        batch["occ"] = bundle.maybe_build_occ(opt, m.cfgs, params)
+        n_rays = min(m.cfgs.rand_rays, HW)
+        before = dict(fc.LAUNCHES)
+        loss, met, _ = b.phase._losses(params, st["xyzs"], batch, None,
+                                       rays_idx=rays[:n_rays], trace_cam=0)
+        total = b.phase.objective(loss, met)
+        grad = torch.autograd.grad(total, (params["se3_r"], params["se3_t"]))
+        r["se3_grad"] = torch.cat(grad, 1).cpu()
+        r["BAPhase sfm_refine"] = b.phase.step(st, batch, None,
+                                               rays_idx=rays[:n_rays], trace_cam=0)
+        if dev == "cuda":
+            assert fc.LAUNCHES["bwd"] - before["bwd"] >= 2, fc.LAUNCHES
+        rf = bundle.Refiner(opt, m.cfgs, m.camera_set, m.point_set, device=dev)
+        st = rf.phase.init_state(_tree_to(m.params, dev))
+        batch = dict(rf.batch)
+        batch["occ"] = bundle.maybe_build_occ(opt, m.cfgs, st["params"])
+        n_rays = min(m.cfgs.rand_rays // batch["images"].shape[0], HW)
+        r["RefinePhase"] = rf.phase.step(st, batch, None, rays_idx=rays[:n_rays],
+                                         trace_cam=1)
+    for name in ("GeoInitPhase", "BAPhase sfm", "BAPhase sfm_refine", "RefinePhase"):
+        _compare_losses(name, {k: float(v) for k, v in res["cpu"][name].items()},
+                        {k: float(v) for k, v in res["cuda"][name].items()})
+    gc, gg = res["cpu"]["se3_grad"], res["cuda"]["se3_grad"]
+    err = float((gg - gc).abs().max() / gc.abs().max())
+    log(f"[reference] sfm_refine se3 gradient through K1/K2, CPU vs GPU: max "
+        f"diff {err:.2e} of its largest entry (bar {REF_RTOL:g}); cpu "
+        f"{gc.numpy().round(5).tolist()} gpu {gg.numpy().round(5).tolist()}")
+    assert float(gc.abs().max()) > 0 and err <= REF_RTOL, err
+
+
+def _ba_params(m, b, dev):
+    import torch
+    se3 = m.camera_set.all_se3(b.padded_ids)
+    return {"sdf": _tree_to(m.params["sdf"], dev), "rad": _tree_to(m.params["rad"], dev),
+            "se3_r": torch.as_tensor(se3[:, :3]).to(dev),
+            "se3_t": torch.as_tensor(se3[:, 3:]).to(dev)}
 
 
 def _tree_to(tree, dev):
@@ -321,7 +461,9 @@ def _init_var(var):
 # --------------------------------------------------------------------------- init
 
 def phase_init():
-    """The main path: two-view init at full width. Returns launch counts."""
+    """The first main path: two-view init at full width. Returns (model,
+    launch counts). Profiling runs on a copy of the parameters, so the
+    model goes on to the register phase as the init left it."""
     import numpy as np
     import torch
     from level_s2fm_tpu_torch.config import build_options
@@ -355,10 +497,10 @@ def phase_init():
     rot_err, t_err, _ = init.pose_errors
     assert n_tri > 0 and math.isfinite(rot_err) and math.isfinite(t_err)
 
-    # steady-state step time: a few more steps on the trained state
-    # (not part of the launch count above)
+    # steady-state step time: a few more steps on a copy of the trained
+    # state (not part of the launch count above)
     from level_s2fm_tpu_torch.sfm import bundle
-    state = init.phase.init_state(model.params)
+    state = init.phase.init_state(_tree_to(model.params, "cuda"))
     batch = dict(init.batch)
     batch["occ"] = bundle.maybe_build_occ(opt, model.cfgs, state["params"])
     gen = torch.Generator().manual_seed(1)
@@ -388,7 +530,166 @@ def phase_init():
         "t_error_deg": t_err,
     }
     log("[init] " + json.dumps(summary))
-    return launches
+    return model, launches
+
+
+# --------------------------------------------------------------------------- register
+
+def phase_register(model):
+    """The second main path: the init phase's model registers views 3 and
+    4 at full width. Returns (launch counts, launch shapes)."""
+    import numpy as np
+    import torch
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+
+    probes, per_stage = {}, {}
+    last = {"fwd": 0, "bwd": 0}
+
+    def hook(stage, obj):
+        """Attribute the launches since the last stage to this one and
+        keep the stage's objects for the profiles below."""
+        now = dict(fc.LAUNCHES)
+        metrics = getattr(obj, "metrics", None) or {}
+        for k, v in metrics.items():
+            assert np.all(np.isfinite(v)), (stage, k, v)
+        rec = per_stage.setdefault(stage, {"calls": 0, "steps": 0, "fwd": 0, "bwd": 0})
+        rec["calls"] += 1
+        rec["steps"] += len(metrics.get("all", ()))
+        for k in ("fwd", "bwd"):
+            rec[k] += now[k] - last[k]
+        last.update(now)
+        if hasattr(obj, "batch"):       # geoinit ran (a source view shared matches)
+            probes[stage] = obj
+
+    model.stage_hook = hook
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    ok = model.train(max_views=REGISTER_VIEWS, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    shapes = {k: dict(v) for k, v in fc.SHAPES.items()}
+    model.stage_hook = None
+    assert ok, "a view failed to register"
+    assert len(model.camera_set) == REGISTER_VIEWS, model.camera_set.cam_ids
+    assert not model.skipped_views, model.skipped_views
+    for row in model.view_log:
+        for k in ("reproj_px", "rot_err_deg", "t_err", "ate"):
+            assert math.isfinite(row[k]), (row["view"], k, row[k])
+        log("[register] view " + json.dumps({
+            k: row[k] for k in ("view", "n_cams", "n_points", "pnp_inliers",
+                                "pnp_ratio", "triangulated", "reproj_px",
+                                "rot_err_deg", "t_err", "ate", "stage_s")}))
+    assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
+    for stage, rec in per_stage.items():
+        if rec["steps"]:
+            rec["fwd_per_step"] = rec["fwd"] / rec["steps"]
+            rec["bwd_per_step"] = rec["bwd"] / rec["steps"]
+    log("[register] " + json.dumps({
+        "views": model.camera_set.cam_ids, "wall_s": wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches,
+        "launch_shapes": {k: {f"{R}x{K}": n for (R, K), n in v.items()}
+                          for k, v in shapes.items()},
+        "per_stage": per_stage}))
+    _profile_register(model, probes)
+    return launches, shapes
+
+
+def _profile_register(model, probes):
+    """Steady ms per step (synchronised) and device-busy share of
+    GeoInitPhase, BAPhase('sfm'), BAPhase('sfm_refine') and RefinePhase,
+    each on a copy of the final parameters with its last call's batch."""
+    import torch
+    from level_s2fm_tpu_torch.sfm import bundle
+    out = {}
+    dev = torch.device("cuda")
+    for stage, name in (("geo_init", "GeoInitPhase"), ("local_ba", "BAPhase sfm"),
+                        ("sfm_refine", "BAPhase sfm_refine"), ("refine", "RefinePhase")):
+        obj = probes[stage]
+        batch = dict(obj.batch)
+        if stage in ("geo_init", "refine"):
+            state = obj.phase.init_state(_tree_to(model.params, dev))
+        else:
+            state = obj.phase.init_state(_ba_params(model, obj, dev), obj.xyzs0.clone())
+        if stage in ("sfm_refine", "refine"):
+            batch["occ"] = bundle.maybe_build_occ(model.opt, model.cfgs, state["params"])
+        gen = torch.Generator().manual_seed(3)
+        for _ in range(2):
+            obj.phase.step(state, batch, gen)
+        torch.cuda.synchronize()
+        n = 10
+        t0 = time.perf_counter()
+        for _ in range(n):
+            obj.phase.step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / n * 1e3
+        prof = _profile_steps(obj.phase, state, batch, gen)
+        out[name] = {"ms_per_step_steady": step_ms,
+                     "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+                     "device_busy_share": prof["device_busy_ms_per_step"] / step_ms,
+                     "top_op_device_ms_per_step": prof["top_op_device_ms_per_step"]}
+        if "valid" in obj.batch:
+            out[name]["P"] = int(obj.batch["valid"].shape[0])
+        del state, batch
+        torch.cuda.empty_cache()
+    log("[register] steady steps " + json.dumps(out))
+
+
+# --------------------------------------------------------------------------- bands
+
+def phase_bands():
+    """The 3-view fast run at configs/synthetic.yaml as it stands, held
+    to 2x the known-good final values and to the E2E oracles."""
+    import numpy as np
+    import torch
+    from level_s2fm_tpu_torch.config import build_options
+    from level_s2fm_tpu_torch.geometry import lie
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
+    from level_s2fm_tpu_torch.train import build_var
+
+    opt = build_options(["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
+                         "--sfm_mode=fast"])
+    model = LevelSfM(opt, seed=int(opt.seed), device="cuda")
+    model.load_data(build_var(opt))
+    fc.reset_launches()
+    # one reproducible run: the hash grid's index_add_ backward sums in a
+    # fixed order (K1/K2 are deterministic already). With float atomics,
+    # runs of this seed spread 4.5-10.3 deg in the 3-camera Procrustes
+    # rotation on the H100, whose sim(3) fit is poorly conditioned
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        ok = model.train(max_views=3, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert ok and model.camera_set.cam_ids == [0, 1, 2], model.camera_set.cam_ids
+    rot, t_err, ate = model.camera_set.eval_poses(verbose=False)
+    got = {"reproj_px": model.view_log[-1]["reproj_px"], "rot_err_deg": rot,
+           "t_err": t_err}
+    poses, gt = model.camera_set.all_poses()
+    p, g = torch.as_tensor(poses), torch.as_tensor(gt)
+
+    def rel_deg(i, j):
+        rel = lie.pose_compose_pair(lie.pose_invert(p[i]), p[j])
+        rel_gt = lie.pose_compose_pair(lie.pose_invert(g[i]), g[j])
+        return float(np.rad2deg(float(lie.rotation_distance(rel_gt[:3, :3],
+                                                             rel[:3, :3]))))
+
+    rel = {"0-1": rel_deg(0, 1), "0-2": rel_deg(0, 2)}
+    log("[bands] " + json.dumps({"final": got, "ate": ate, "known_good": BANDS,
+                                 "factor": BANDS_FACTOR, "rel_rot_deg": rel,
+                                 "n_points": len(model.point_set),
+                                 "launches": dict(fc.LAUNCHES), "wall_s": wall,
+                                 "stage_s": model.view_log[-1]["stage_s"]}))
+    for k, v in BANDS.items():
+        assert math.isfinite(got[k]) and got[k] <= BANDS_FACTOR * v, (k, got[k], v)
+    assert rel["0-1"] < 5.0 and rel["0-2"] < 8.0, rel
 
 
 def _layer_split(model, state, batch, n=5):
@@ -518,9 +819,21 @@ def main():
     recs = phase_kernels(main_shape=(4096, 32))
     phase_adapter()
     phase_reference()
-    launches = phase_init()
-    recs[0]["launches"] = launches["fwd"]
-    recs[1]["launches"] = launches["bwd"]
+    log(f"[time] {time.time() - t_start:.1f} s")
+    model, launches = phase_init()
+    log(f"[time] {time.time() - t_start:.1f} s")
+    reg_launches, reg_shapes = phase_register(model)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] {time.time() - t_start:.1f} s")
+    shapes = sorted(set(reg_shapes["fwd"]) | set(reg_shapes["bwd"]))
+    err = hold_composite(shapes, torch.device("cuda"), tag="register kernels")
+    for rec, kind in zip(recs, ("fwd", "bwd")):
+        rec["launches"] = launches[kind] + reg_launches[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
+    log("[launches] init " + json.dumps(launches) + " register "
+        + json.dumps(reg_launches))
+    phase_bands()
     log(f"[done] {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -94,3 +94,23 @@ def essential_ransac(kp0: np.ndarray, kp1: np.ndarray, K: np.ndarray,
                                  _dp(R), _dp(t),
                                  inl.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return bool(ok), R.astype(np.float32), t.astype(np.float32), inl.astype(bool)
+
+
+def pnp_ransac(p2d: np.ndarray, p3d: np.ndarray, K: np.ndarray,
+               max_error_px: float = 3.0, refine: bool = True,
+               max_iters: int = 1000):
+    """P3P LO-RANSAC (seeded, deterministic) + LM refinement on the
+    inliers. Returns (ok, R [3,3] w2c, t [3], inlier mask [N])."""
+    lib = load()
+    n = p2d.shape[0]
+    p2d = np.ascontiguousarray(p2d, np.float64)
+    p3d = np.ascontiguousarray(p3d, np.float64)
+    K = np.ascontiguousarray(K, np.float64)
+    R = np.zeros((3, 3), np.float64)
+    t = np.zeros(3, np.float64)
+    inl = np.zeros(n, np.uint8)
+    ok = lib.mg_pnp_ransac(_dp(p2d), _dp(p3d), n, _dp(K),
+                           max_error_px, max_iters, 1 if refine else 0,
+                           _dp(R), _dp(t),
+                           inl.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return bool(ok), R.astype(np.float32), t.astype(np.float32), inl.astype(bool)

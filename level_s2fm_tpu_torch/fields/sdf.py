@@ -9,6 +9,14 @@ Counterpart of ``level_s2fm_tpu/fields/sdf.py`` (default paths):
   one gather pass (the encode's spatial Jacobian chained through the
   MLP's input gradient, all tensor ops, so an eikonal loss can
   differentiate the normal w.r.t. the table and w.r.t. x).
+* ``gradient`` — the normal alone. The JAX package's
+  ``gradient_chunked`` / ``infer_with_normal_chunked`` split their
+  points only to stay under a TPU compiler limit; here every point goes
+  through ``gradient`` / ``infer_all_with_normal`` in one pass.
+* ``infer_sdf_host`` — a no-grad eval returning numpy for host callers
+  (PnP gating, NBV scoring), at the exact N.
+* ``get_surface_pts`` — BA's projection of points onto the zero level
+  set along the analytic normal (differentiable w.r.t. the field).
 * ``sphere_march`` / ``sphere_reeval`` / ``sphere_tracing`` — the
   bidirectional fixed-trip march under ``no_grad``, then the
   differentiable re-evaluation along the stored track: depth = t_min +
@@ -163,6 +171,34 @@ def infer_all_with_normal(params, cfg: SDFConfig, xyz: torch.Tensor):
         bg_normal = -xyz / torch.clamp(r, min=1e-12)
         normal = torch.where(take_bg, bg_normal, normal)
     return sdf, feat, normal
+
+
+def gradient(params, cfg: SDFConfig, xyz: torch.Tensor) -> torch.Tensor:
+    """Spatial SDF gradient (normals) from the fused analytic path;
+    differentiable again w.r.t. the field parameters."""
+    return infer_all_with_normal(params, cfg, xyz)[2]
+
+
+@torch.no_grad()
+def infer_sdf_host(params, cfg: SDFConfig, pts: np.ndarray) -> np.ndarray:
+    """SDF at host points [N,3] -> numpy [N], evaluated on the field's
+    device at the exact N."""
+    pts = np.asarray(pts, np.float32).reshape(-1, 3)
+    if pts.shape[0] == 0:
+        return np.zeros((0,), np.float32)
+    x = torch.as_tensor(pts).to(params["table"].device)
+    return infer_sdf(params, cfg, x)[:, 0].cpu().numpy()
+
+
+def get_surface_pts(params, cfg: SDFConfig, pts: torch.Tensor):
+    """Project points to the zero level set along the (unnormalized)
+    normal: surf = pts - n * sdf / detach(max(|n|, 1e-8)). Returns
+    (surf_pts, |n|). sdf and normal come from one fused eval at the
+    detached points; the clamp keeps a flat region's step finite."""
+    sdf, _, normals = infer_all_with_normal(params, cfg, pts.detach())
+    nval = torch.linalg.norm(normals, dim=-1, keepdim=True)
+    denom = torch.clamp(nval, min=1e-8).detach()
+    return pts - normals / denom * sdf, nval
 
 
 def forward_ab(params, cfg: SDFConfig):
@@ -325,13 +361,16 @@ def march_samples(m: SphereMarch, ray0, ray_dir,
 def sphere_tracing(params, cfg: SDFConfig, ray0: torch.Tensor,
                    ray_dir: torch.Tensor, gen: Optional[torch.Generator] = None,
                    track_subsample: int = 4096,
-                   max_sample_pts: Optional[int] = 4096) -> SphereTraceResult:
-    """Bidirectional sphere tracing: march + differentiable re-eval."""
+                   max_sample_pts: Optional[int] = 4096,
+                   draws: Optional[dict] = None) -> SphereTraceResult:
+    """Bidirectional sphere tracing: march + differentiable re-eval.
+    ``draws`` (keys ``factor_rand``, ``pick``, ``pick2``) replaces the
+    random draws of ``march_samples``."""
     m = sphere_march(params, cfg, ray0, ray_dir)
     d_pred, sdf_last, finish_mask, pts_surface = sphere_reeval(
         params, cfg, m, ray0, ray_dir)
     sample_pts = march_samples(m, ray0, ray_dir, gen, track_subsample,
-                               max_sample_pts)
+                               max_sample_pts, **(draws or {}))
     return SphereTraceResult(d_pred=d_pred, sdf_surf=sdf_last,
                              sample_pts=sample_pts,
                              finish_mask=finish_mask, pts_surface=pts_surface)

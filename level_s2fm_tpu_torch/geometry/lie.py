@@ -1,11 +1,12 @@
 """Lie-group camera pose math in PyTorch.
 
-Counterpart of ``level_s2fm_tpu/geometry/lie.py`` for what two-view
-initialization and ``CameraSet.eval_poses`` use: [R|t] composition and
+Counterpart of ``level_s2fm_tpu/geometry/lie.py`` for what the SfM
+pipeline and ``CameraSet.eval_poses`` use: [R|t] composition and
 inversion, the se3/SO3 exp/log maps with their small-angle branches
 (``torch.where`` on a substituted operand, so gradients stay finite at
 0), Euler rotations, and the pose-error measures. Batched over leading
-dims. Quaternions and ``slerp_pose`` wait for the registration slice.
+dims. Quaternions and ``slerp_pose`` have no caller on the main path
+and wait with the off-path items.
 """
 from __future__ import annotations
 

@@ -1,11 +1,14 @@
 """Coordinate transforms and ray generation in PyTorch.
 
 Counterpart of the part of ``level_s2fm_tpu/geometry/transforms.py`` that
-two-view initialization uses: world/cam/img transforms, the pixel grid,
-camera centres and rays, and projection. Procrustes alignment and the
-multi-view evaluation wait for the registration slice.
+the SfM pipeline uses: world/cam/img transforms, the pixel grid, camera
+centres and rays, projection, and the Procrustes sim(3) alignment with
+the camera-pose evaluation (an SVD on the host). NDC rays and the
+novel-view trajectory wait with the renderer's extras.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -72,3 +75,54 @@ def project_points(pts, pose, K, eps=1e-6):
                         torch.clamp(depth, max=-eps))
     uv = uvw[..., :2] / denom
     return uv, depth
+
+
+class Sim3(NamedTuple):
+    t0: torch.Tensor
+    t1: torch.Tensor
+    s0: torch.Tensor
+    s1: torch.Tensor
+    R: torch.Tensor
+
+
+def procrustes_analysis(X0, X1):
+    """Similarity transform aligning X1 to X0 (both [N,3]):
+    X1to0 = (X1-t1)/s1 @ R.T * s0 + t0.
+
+    R = U Vt is unchanged when an SVD flips the signs of a pair of
+    singular vectors, so it does not depend on the library's sign
+    convention (the singular values of a camera layout are distinct)."""
+    t0 = X0.mean(dim=0, keepdim=True)
+    t1 = X1.mean(dim=0, keepdim=True)
+    X0c, X1c = X0 - t0, X1 - t1
+    s0 = torch.sqrt((X0c ** 2).sum(dim=-1).mean())
+    s1 = torch.sqrt((X1c ** 2).sum(dim=-1).mean())
+    U, _, Vt = torch.linalg.svd((X0c / s0).T @ (X1c / s1))
+    if torch.linalg.det(U @ Vt) < 0:
+        U = U.clone()
+        U[:, 2] = -U[:, 2]
+    return Sim3(t0=t0[0], t1=t1[0], s0=s0, s1=s1, R=U @ Vt)
+
+
+def prealign_cameras(pose, pose_GT):
+    """Sim3-align predicted w2c poses to GT via the camera centres.
+    Returns (pose_aligned, sim3)."""
+    center = torch.zeros((1, 1, 3), dtype=pose.dtype, device=pose.device)
+    center_pred = cam2world(center, pose)[:, 0]
+    center_GT = cam2world(center, pose_GT)[:, 0]
+    sim3 = procrustes_analysis(center_GT, center_pred)
+    center_aligned = ((center_pred - sim3.t1) / sim3.s1 @ sim3.R.T * sim3.s0
+                      + sim3.t0)
+    R_aligned = pose[..., :3] @ sim3.R.T
+    t_aligned = (-R_aligned @ center_aligned[..., None])[..., 0]
+    return lie.pose_from_Rt(R_aligned, t_aligned), sim3
+
+
+def evaluate_camera_alignment(pose_aligned, pose_GT):
+    """Rotation (rad), translation-norm errors and ATE between c2w poses."""
+    R_aligned, t_aligned = pose_aligned[..., :3], pose_aligned[..., 3:]
+    R_GT, t_GT = pose_GT[..., :3], pose_GT[..., 3:]
+    R_error = lie.rotation_distance(R_aligned, R_GT)
+    t_error = torch.linalg.norm((t_aligned - t_GT)[..., 0], dim=-1)
+    ate = torch.sqrt(((t_aligned - t_GT)[..., 0] ** 2).sum(dim=-1).mean())
+    return R_error, t_error, ate

@@ -25,7 +25,7 @@ the same.
 ``LaplaceComposite`` is the autograd op. It takes the plain PyTorch
 versions (``_forward_ref`` / ``_backward_ref``) only for CPU tensors; for
 CUDA tensors it launches the kernels or raises. ``LAUNCHES`` counts kernel
-launches.
+launches and ``SHAPES`` counts them by (R, K).
 """
 from __future__ import annotations
 
@@ -39,6 +39,8 @@ from .. import kernels
 #: kernel launches since the last reset (``fwd`` = lc_forward, ``bwd`` =
 #: lc_backward); incremented only where a kernel is launched
 LAUNCHES = {"fwd": 0, "bwd": 0}
+#: the same launches counted by shape: {"fwd": {(R, K): n}, "bwd": {...}}
+SHAPES = {"fwd": {}, "bwd": {}}
 
 #: largest K the kernels take (``lc_max_k`` in the CUDA source)
 MAX_K = 2048
@@ -50,6 +52,12 @@ MIN_RAYS_PER_BLOCK = 4
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        SHAPES[k] = {}
+
+
+def _count(kind, R, K):
+    LAUNCHES[kind] += 1
+    SHAPES[kind][R, K] = SHAPES[kind].get((R, K), 0) + 1
 
 
 def _sigma(sdf, valid, alpha, beta):
@@ -234,7 +242,7 @@ def forward_cuda(sdf, valid, delta, rgb, depth, normal, alpha, beta):
         R, K, rgb_o.data_ptr(), dep_o.data_ptr(), nrm_o.data_ptr(),
         op_o.data_ptr(), stream))
     kernels.check(st, "lc_forward")
-    LAUNCHES["fwd"] += 1
+    _count("fwd", R, K)
     return rgb_o, dep_o, nrm_o, op_o
 
 
@@ -285,7 +293,7 @@ def _backward_launch(sdf, valid, delta, rgb, depth, normal, alpha, beta,
             ticket.data_ptr(), stream)
 
     kernels.check(_launch(sdf.device, run), "lc_backward")
-    LAUNCHES["bwd"] += 1
+    _count("bwd", R, K)
     return d_sdf, d_delta, d_rgb, d_depth, d_nrm, d_ab[0], d_ab[1]
 
 

@@ -1,10 +1,11 @@
-"""Host-side minimal-solver geometry: the essential matrix.
+"""Host-side minimal-solver geometry: essential matrix and PnP.
 
-Counterpart of ``level_s2fm_tpu/sfm/hostgeom.py::estimate_essential``
-(its minigeom branch): 5-point RANSAC with cheirality from the port's own
-build of the native C++ library. There is no OpenCV fallback; the call
-raises if the library cannot be built. PnP and DLT triangulation wait for
-the registration slice.
+Counterpart of ``estimate_essential`` and ``pnp_ransac`` in
+``level_s2fm_tpu/sfm/hostgeom.py`` (their minigeom branches): 5-point
+RANSAC with cheirality, and P3P LO-RANSAC with LM refinement, from the
+port's own build of the native C++ library. There is no OpenCV fallback;
+a call raises if the library cannot be built. DLT triangulation (the
+``tri_trad`` ablation) waits with the ablations.
 """
 from __future__ import annotations
 
@@ -24,6 +25,14 @@ class TwoViewResult:
     inliers: Optional[np.ndarray] = None
 
 
+@dataclasses.dataclass
+class PnPResult:
+    success: bool
+    R: Optional[np.ndarray] = None      # [3,3] w2c
+    t: Optional[np.ndarray] = None      # [3]
+    inliers: Optional[np.ndarray] = None
+
+
 def estimate_essential(kp0: np.ndarray, kp1: np.ndarray, K: np.ndarray,
                        threshold_px: float = 1.0, prob: float = 0.9999) -> TwoViewResult:
     """Relative pose from calibrated 2D-2D matches (5-point RANSAC +
@@ -37,3 +46,17 @@ def estimate_essential(kp0: np.ndarray, kp1: np.ndarray, K: np.ndarray,
     if ok:
         return TwoViewResult(True, R, t, inl)
     return TwoViewResult(False)
+
+
+def pnp_ransac(p2d: np.ndarray, p3d: np.ndarray, K: np.ndarray,
+               max_error_px: float = 3.0, refine: bool = True) -> PnPResult:
+    """Absolute pose from 2D-3D matches (P3P RANSAC + LM refinement)."""
+    p2d = np.ascontiguousarray(p2d, np.float64)
+    p3d = np.ascontiguousarray(p3d, np.float64)
+    if p3d.shape[0] < 4:
+        return PnPResult(False)
+    ok, R, t, inl = minigeom.pnp_ransac(p2d, p3d, np.asarray(K, np.float64),
+                                        max_error_px, refine)
+    if ok:
+        return PnPResult(True, R, t, inl)
+    return PnPResult(False)

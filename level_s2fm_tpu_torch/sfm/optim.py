@@ -31,10 +31,17 @@ def decay_gamma(lr: float, lr_end: float, max_iter: int) -> float:
     return (lr_end / lr) ** (1.0 / max_iter)
 
 
+#: the label whose leaves get no update (the JAX package's
+#: ``optax.set_to_zero``)
+FROZEN = "frozen"
+
+
 class PhaseAdam:
     """Adam over the leaves of ``params`` (a dict of sub-trees), each
     top-level key mapped to a label with its base lr; the lr at step t
-    (0-based) is base_lr * gamma**t."""
+    (0-based) is base_lr * gamma**t. Leaves labelled ``frozen`` are left
+    out: they get no moments, no gradient and no update, so they stay
+    bit for bit as they were."""
 
     def __init__(self, params: Dict, label_of_key: Dict[str, str],
                  label_lrs: Dict[str, float], gamma: float,
@@ -42,6 +49,8 @@ class PhaseAdam:
         self.leaves: List[torch.Tensor] = []
         self.lrs: List = []
         for k in sorted(params):
+            if label_of_key[k] == FROZEN:
+                continue
             for leaf in tree_leaves(params[k]):
                 self.leaves.append(leaf)
                 self.lrs.append(label_lrs[label_of_key[k]])

@@ -1,15 +1,23 @@
-"""Incremental SfM orchestrator — the two-view start of the engine.
+"""Incremental SfM orchestrator — the engine state machine.
 
 Counterpart of ``LevelSfM`` in ``level_s2fm_tpu/sfm/pipeline.py``:
-construction, data loading, the random stream, two-view initialization
-and ``train`` up to it. Registration of further views (NBV, PnP,
-geoinit, BA, refine), checkpointing and the metric recorder wait for
-later slices (ROADMAP Queue 1).
+two-view init, then per view: NBV selection (colmap order or PnP
+scoring), PnP registration, SDF triangulation (geoinit), sfm_refine ->
+local BA -> global BA cycles with the reprojection gates (2.5 px / 1.0
+px, cycle caps 1/5/5), the rendering refine, and the per-view metrics
+row. ``train`` ends cleanly when every view is registered, defers failed
+views (``registration.max_attempts`` > 1) and stops when a retry could
+only fail again. The field parameters are updated in place, so the
+rollback points (the BA guard, the non-finite field check) hold copies.
+Checkpoints and the per-view artifacts wait with the checkpoint slice;
+``ba_trad`` waits with the ablations.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -17,12 +25,19 @@ from ..fields import radiance as radf
 from ..fields import sdf as sdf_mod
 from ..rendering import renderer as ren_mod
 from . import entities
+from .bundle import Bundler, Refiner
 from .initialization import Initializer
 from .phases import PhaseCfgs
+from .registration import Registration, score_candidates
 
-#: where the registration loop (views 3..N) will come from
-REGISTRATION_ITEM = ("ROADMAP.md Queue 1, item 'Registration + geoinit' "
-                     "(select_next_view, Registration.pnp / geo_init)")
+
+def clone_params(tree):
+    """A detached copy of a parameter tree (a rollback point)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: clone_params(v) for k, v in tree.items()}
+    return [clone_params(v) for v in tree]
 
 
 class LevelSfM:
@@ -53,6 +68,14 @@ class LevelSfM:
         self.var: Optional[Dict] = None
         self.cam_info_reloaded = None
         self.initializer: Optional[Initializer] = None
+        #: one dict per registered view (the metrics row, the stage
+        #: timings and what PnP / geoinit / BA reported)
+        self.view_log: List[Dict] = []
+        self.skipped_views: List[int] = []
+        #: called as hook(stage, obj) after each stage of a registration
+        #: (geo_init: the Registration; sfm_refine, local_ba, global_ba:
+        #: the Bundler; refine: the Refiner), for probes and profiling
+        self.stage_hook = None
 
     def load_data(self, var: Dict):
         """var: kypts, matches, masks, poses_gt, images, intrs, pose_graph."""
@@ -63,6 +86,18 @@ class LevelSfM:
         seed = int(torch.randint(0, 2 ** 62, (), generator=self.gen))
         return torch.Generator().manual_seed(seed)
 
+    def _make_camera(self, cam_id: int) -> entities.Camera:
+        var = self.var
+        return entities.Camera(
+            id=cam_id,
+            img=np.asarray(var["images"][cam_id], np.float32),
+            intr=np.asarray(var["intrs"][cam_id], np.float32),
+            pose_gt=np.asarray(var["poses_gt"][cam_id], np.float32),
+            kypts=np.asarray(var["kypts"][cam_id], np.float32),
+            matches=var["matches"][cam_id],
+            inlier_masks=var["masks"][cam_id])
+
+    # ------------------------------------------------------------ phases
     def initialize_two_views(self, id0: int, id1: int, verbose=True):
         var = self.var
         init_var = {
@@ -81,17 +116,242 @@ class LevelSfM:
             self.params = self.initializer.run(self.params, self.next_key(),
                                                verbose=verbose)
 
+    def select_next_view(self, pose_graph_left, verbose=True) -> int:
+        """NBV: colmap order, or the PnP inlier score of every candidate
+        (ratio x min(views, 10) + count / max count)."""
+        if self.opt.get("nbv_mode", "colmap") == "colmap":
+            return pose_graph_left[0]
+        cands = [self._make_camera(c) for c in pose_graph_left]
+        scored = score_candidates(self.opt, self.cfgs, self.params,
+                                  self.camera_set, cands, self.point_set)
+        nums = np.asarray([s[2] for s in scored], np.float64)
+        score = (np.asarray([s[1] for s in scored])
+                 * np.clip(np.asarray([s[3] for s in scored]), 0, 10)
+                 + nums / max(nums.max(), 1))
+        return pose_graph_left[int(np.argmax(score))]
+
+    def _prune_observations(self, verbose=True, reproj: float = None):
+        """Post-BA outlier-observation pruning, gated by
+        ``optim.prune.reproj_max`` (px; 0 = off). Skipped when the calling
+        BA cycle's mean reprojection is itself above the gate."""
+        pr = self.opt.optim.get("prune", {})
+        thr = float(pr.get("reproj_max", 0.0) or 0.0)
+        if thr <= 0.0:
+            return
+        if reproj is not None and (not np.isfinite(reproj) or reproj > thr):
+            if verbose:
+                print(f"[prune] skipped: mean reproj {reproj:.2f}px above "
+                      f"the {thr}px gate (diverged state)")
+            return
+        n_rm, n_ret = entities.prune_outlier_observations(
+            self.camera_set, self.point_set, thr_px=thr,
+            min_track=int(pr.get("min_track", 2)),
+            max_cam_frac=float(pr.get("max_cam_frac", 0.25)))
+        if verbose and (n_rm or n_ret):
+            print(f"[prune] dropped {n_rm} observations > {thr}px, "
+                  f"retired {n_ret} points")
+
+    def _ba_guard_pre(self, cam_ids):
+        """Rollback point of one BA cycle when the divergence guard is on
+        (``optim.ba_guard.factor`` > 0). Returns (pre_mean_reproj_px,
+        geometry_snapshot, params_copy)."""
+        g = self.opt.optim.get("ba_guard", {})
+        if float(g.get("factor", 0.0) or 0.0) <= 0.0:
+            return None, None, None
+        pre = entities.mean_reprojection_px(self.camera_set, self.point_set,
+                                            cam_ids)
+        snap = entities.snapshot_geometry(self.camera_set, self.point_set)
+        return pre, snap, clone_params(self.params)
+
+    def _ba_guard_post(self, label, pre, snap, params_pre, cam_ids,
+                       verbose=True) -> bool:
+        """Roll one BA cycle back when it diverged: post-cycle mean
+        reprojection non-finite, or worse than ``factor`` x the pre-cycle
+        value and above ``px_min``. Returns True when rolled back."""
+        if snap is None:
+            return False
+        g = self.opt.optim.get("ba_guard", {})
+        factor = float(g.get("factor", 2.0))
+        px_min = float(g.get("px_min", 2.0))
+        post = entities.mean_reprojection_px(self.camera_set, self.point_set,
+                                             cam_ids)
+        diverged = (not np.isfinite(post)) or (
+            np.isfinite(pre) and post > max(factor * pre, px_min))
+        if diverged:
+            entities.restore_geometry(self.camera_set, self.point_set, snap)
+            self.params = params_pre
+            if verbose:
+                print(f"[ba-guard] {label} cycle diverged "
+                      f"({pre:.2f} -> {post:.2f}px); rolled back")
+            return True
+        return False
+
+    def _finite_params_or_revert(self, label: str, params_prev) -> bool:
+        """If any field parameter went non-finite, revert to the copy
+        taken before the phase. Returns True when healthy."""
+        from .optim import tree_leaves
+        ok = bool(torch.stack([torch.isfinite(p).all()
+                               for p in tree_leaves(self.params)]).all())
+        if not ok:
+            print(f"WARNING: [field-guard] non-finite field params after "
+                  f"{label}; reverting to pre-phase params")
+            self.params = params_prev
+        return ok
+
+    def register_view(self, new_id: int, verbose=True) -> bool:
+        """PnP + geoinit + BA cycles (+ refine in full mode) for one view."""
+        opt = self.opt
+        if opt.Ablate_config.get("ba_trad", False):
+            raise NotImplementedError("Ablate_config.ba_trad is not ported yet")
+        row: Dict = {"view": new_id, "stage_s": {}}
+        timers = row["stage_s"]
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            timers[name] = timers.get(name, 0.0) + time.perf_counter() - t0
+            return out
+
+        camera_new = self._make_camera(new_id)
+        reg = Registration(opt, self.cfgs, self.camera_set)
+        reg_cfg = opt.get("registration", {})
+        ok, ratio, num = timed("pnp", lambda: reg.pnp(
+            self.params, camera_new, self.point_set, if_nbv=True,
+            min_inliers=int(reg_cfg.get("min_inliers", 0)),
+            min_inlier_ratio=float(reg_cfg.get("min_inlier_ratio", 0.0))))
+        row["pnp_inliers"], row["pnp_ratio"] = num, ratio
+        self.camera_set.eval_poses(verbose=verbose)
+        if not ok:
+            print("reconstruct fail")
+            return False
+        self.camera_set.add(camera_new)
+        params_pre = clone_params(self.params)
+        self.params = timed("geo_init", lambda: reg.geo_init(
+            self.params, camera_new, self.point_set, self.next_key(),
+            verbose=verbose))
+        self._finite_params_or_revert("geo_init", params_pre)
+        row["triangulated"] = getattr(reg, "tri_ratio", [0, 0])
+        self._probe("geo_init", reg)
+        src_cam_id = reg.src_cam_id
+
+        def bundle(stage, ids, mode):
+            b = Bundler(opt, self.cfgs, self.camera_set, self.point_set,
+                        cam_pick_ids=ids, mode=mode, device=self.device)
+            self.params, reproj = timed(stage, lambda: b.run(
+                self.params, self.next_key(), verbose))
+            self._probe(stage, b)
+            return reproj
+
+        full = opt.get("sfm_mode", "full") == "full"
+        if full:
+            # reproj + rendering registration refine of the new camera
+            reproj, cycle = 100.0, 0
+            while reproj > 2.5 and cycle < 1:
+                params_pre = clone_params(self.params)
+                reproj = bundle("sfm_refine", [new_id], "sfm_refine")
+                self._finite_params_or_revert("sfm_refine", params_pre)
+                self.camera_set.eval_poses(src_cam_id + [new_id], verbose=verbose)
+                cycle += 1
+        # local BA cycles
+        reproj, cycle = 100.0, 0
+        measured_reproj = None  # last measured mean reproj (None = never)
+        local_ids = [new_id] + src_cam_id
+        while reproj > 1.0 and cycle < 5:
+            pre, snap, params_pre = self._ba_guard_pre(local_ids)
+            reproj = bundle("local_ba", local_ids, "sfm")
+            if self._ba_guard_post("local BA", pre, snap, params_pre, local_ids,
+                                   verbose):
+                reproj = measured_reproj = pre
+                break
+            measured_reproj = reproj
+            self.camera_set.eval_poses(src_cam_id + [new_id], verbose=verbose)
+            cycle += 1
+            # from cycle 2 the new pose has settled: prune inside the loop
+            if cycle >= 2:
+                self._prune_observations(verbose, reproj)
+        self._prune_observations(verbose, measured_reproj)
+        # global BA cycles
+        reproj, cycle = 100.0, 0
+        while reproj > 1.0 and cycle < 5:
+            pre, snap, params_pre = self._ba_guard_pre(None)
+            reproj = bundle("global_ba", None, "sfm")
+            if self._ba_guard_post("global BA", pre, snap, params_pre, None,
+                                   verbose):
+                reproj = pre
+                break
+            self.camera_set.eval_poses(verbose=verbose)
+            cycle += 1
+            self._prune_observations(verbose, reproj)
+        if full:
+            params_pre = clone_params(self.params)
+            r = Refiner(opt, self.cfgs, self.camera_set, self.point_set,
+                        device=self.device)
+            self.params = timed("refine", lambda: r.run(
+                self.params, self.next_key(), verbose))
+            self._finite_params_or_revert("refine", params_pre)
+            self._probe("refine", r)
+        r_deg, t_err, ate = self.camera_set.eval_poses(verbose=False)
+        row.update(n_cams=len(self.camera_set), n_points=len(self.point_set),
+                   reproj_px=reproj, rot_err_deg=r_deg, t_err=t_err, ate=ate)
+        self.view_log.append(row)
+        print({k: row[k] for k in ("view", "n_cams", "n_points", "reproj_px",
+                                   "rot_err_deg", "t_err", "ate")})
+        return True
+
+    def _probe(self, stage, obj):
+        if self.stage_hook is not None:
+            self.stage_hook(stage, obj)
+
+    # ------------------------------------------------------------ main loop
     def train(self, verbose=True, max_views: Optional[int] = None):
-        """Two-view initialization on the first pair of the pose graph.
-        Registering more views is not ported yet and raises."""
+        """Two-view init, then register views until every view of the
+        pose graph is in, ``max_views`` is reached, or the remaining views
+        cannot register. Returns False on the reference-parity abort
+        (first failure with ``registration.max_attempts`` = 1)."""
         pose_graph = list(self.var["pose_graph"])
         n_img = len(self.var["images"])
         if len(pose_graph) <= n_img / 2:
             pose_graph = pose_graph + [j for j in range(n_img) if j not in pose_graph]
-        want = n_img if max_views is None else int(max_views)
-        if want > 2:
-            raise NotImplementedError(
-                f"registering views beyond the first two (asked for {want}) "
-                f"is not ported yet: see {REGISTRATION_ITEM}")
-        if len(self.camera_set) < 2:
-            self.initialize_two_views(pose_graph[0], pose_graph[1], verbose=verbose)
+        # a failed view is deferred until another view registers (new
+        # points give it new 2D-3D pairs) and retried up to max_attempts
+        # times; PnP is seeded, so a retry against an unchanged scene
+        # would fail again, and the run stops instead
+        max_attempts = int(self.opt.get("registration", {}).get("max_attempts", 1))
+        fail_counts: Dict[int, int] = {}
+        deferred: set = set()
+        while True:
+            if max_views is not None and len(self.camera_set) >= max_views:
+                break
+            if len(self.camera_set) < 2:
+                self.initialize_two_views(pose_graph[0], pose_graph[1],
+                                          verbose=verbose)
+                continue
+            left = [p for p in pose_graph if p not in self.camera_set.cam_ids]
+            print(f"---------------- {len(left)} frames left ------------------")
+            if not left:
+                print("finish!")
+                break
+            retryable = [p for p in left if fail_counts.get(p, 0) < max_attempts]
+            eligible = [p for p in retryable if p not in deferred]
+            if not eligible:
+                why = ("" if not retryable else " — no scene change since "
+                       "their last failed attempt")
+                print(f"finish! (skipped unregisterable views: {sorted(left)}"
+                      f"{why})")
+                self.skipped_views = sorted(left)
+                break
+            new_id = self.select_next_view(eligible, verbose=verbose)
+            print(f"-------------the best view next id is {new_id}--------------")
+            if not self.register_view(new_id, verbose=verbose):
+                fail_counts[new_id] = fail_counts.get(new_id, 0) + 1
+                if max_attempts <= 1:
+                    return False    # reference-parity abort
+                deferred.add(new_id)
+                print(f"[defer] view {new_id} failed registration "
+                      f"(attempt {fail_counts[new_id]}/{max_attempts}); "
+                      f"requeued")
+                continue
+            deferred.clear()
+        return True

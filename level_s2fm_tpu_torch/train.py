@@ -1,13 +1,17 @@
-"""CLI entry of the port: two-view initialization on the GPU.
+"""CLI entry of the port: incremental neural SfM on the GPU.
 
-    python -m level_s2fm_tpu_torch.train --yaml=configs/synthetic.yaml --max_views=2 [--cpu]
+    python -m level_s2fm_tpu_torch.train --yaml=configs/synthetic.yaml \
+        [--sfm_mode=fast] [--max_views=N] [--cpu]
 
 Same options as the JAX package's ``train.py`` (dot-path overrides,
 ``--flag`` / ``--flag!``). Runs on ``cuda`` unless ``--cpu`` is given and
-raises when no GPU is there. Builds the synthetic scene from ``--seed``,
-runs ``LevelSfM.train`` up to the two-view initialization and prints the
-init losses, the triangulation ratio and the pose errors against GT.
-``--max_views`` above 2 raises: registration is a later slice.
+raises when no GPU is there. Builds the synthetic scene from ``--seed``
+and runs ``LevelSfM.train``: the two-view initialization, then every
+further view (up to ``--max_views``) through PnP, geoinit, the BA cycles
+and, in ``full`` mode, the rendering refine. With
+``Ablate_config.refine_again`` a final refine over all views follows.
+Prints the init summary, one metrics row per registered view and a final
+summary with the registered and skipped views.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ def build_var(opt):
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     from .config import build_options
+    from .sfm.bundle import Refiner
     from .sfm.pipeline import LevelSfM
     opt = build_options(argv)
     device = "cpu" if opt.get("cpu", False) else "cuda"
@@ -40,16 +45,25 @@ def main(argv=None):
     model.load_data(build_var(opt))
     max_views = opt.get("max_views", None)
     t0 = time.time()
-    model.train(max_views=int(max_views) if max_views else None)
+    ok = model.train(max_views=int(max_views) if max_views else None)
     init = model.initializer
     m = init._metrics
     print({"init_losses_first": {k: float(v[0]) for k, v in m.items()},
            "init_losses_last": {k: float(v[-1]) for k, v in m.items()},
-           "steps": int(len(m["all"])), "seconds": round(time.time() - t0, 3),
-           "triangulated": init.tri_ratio,
+           "steps": int(len(m["all"])), "triangulated": init.tri_ratio,
            "rot_error_deg": init.pose_errors[0],
-           "t_error_deg": init.pose_errors[1],
-           "device": str(model.device)})
+           "t_error_deg": init.pose_errors[1]})
+    if ok and opt.Ablate_config.get("refine_again", False):
+        r = Refiner(opt, model.cfgs, model.camera_set, model.point_set,
+                    device=model.device)
+        model.params = r.run(model.params, model.next_key())
+    rot, t_err, ate = model.camera_set.eval_poses(verbose=False)
+    print({"ok": bool(ok), "registered": list(model.camera_set.cam_ids),
+           "skipped_views": model.skipped_views,
+           "n_points": len(model.point_set),
+           "reproj_px": model.view_log[-1]["reproj_px"] if model.view_log else None,
+           "rot_error_deg": rot, "t_error": t_err, "ate": ate,
+           "seconds": round(time.time() - t0, 3), "device": str(model.device)})
     return model
 
 

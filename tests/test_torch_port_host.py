@@ -238,8 +238,15 @@ def test_device_policy():
             params_from_jax({"beta": np.ones(1, np.float32)})
 
 
-def test_entry_refuses_registration():
+def test_entry_registers_three_views():
+    """The port's CLI entry runs registration past the two-view init:
+    ``--max_views=3`` on the CPU at tiny widths registers three views."""
     from level_s2fm_tpu_torch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--yaml=configs/synthetic.yaml", "--cpu", "--max_views=3",
-                    "--SDF.Hash_config.log2_hashmap_size=10"])
+    from torch_port_helpers import TINY_ARGS
+    m = train.main(TINY_ARGS + ["--cpu", "--max_views=3", "--data.n_views=3",
+                                "--optim.geoinit.max_iter=1",
+                                "--optim.ba.max_iter=4",
+                                "--optim.refine.max_iter=2"])
+    assert m.camera_set.cam_ids == [0, 1, 2]
+    assert [r["view"] for r in m.view_log] == [2]
+    assert np.isfinite(m.view_log[0]["reproj_px"])
