@@ -7,8 +7,8 @@ Imports nothing of JAX and nothing of the JAX package. Phases (any
 failure raises and exits non-zero):
 
 1. build — the CUDA kernels (``level_s2fm_tpu_torch/csrc/*.cu``, one nvcc
-   per source, started together) and the minigeom host library (g++),
-   from the sources in this checkout.
+   per source, started together) and the host libraries minigeom and
+   pngfilter (g++), from the sources in this checkout.
 2. kernels — every kernel of the main path against its plain PyTorch
    version on the card, at the main path's shape and at ragged / chunked
    shapes, with the tolerance stated; then timed (CUDA events) beside
@@ -51,9 +51,27 @@ failure raises and exits non-zero):
    within 2x of the known-good values (reproj 0.315 px, rot 6.0 deg, t
    0.018), and the relative rotations within the E2E oracles (views 0-1
    < 5 deg, 0-2 < 8 deg).
+8. prepared — the third main path, through the port's CLI entry
+   (``train.main``) on a prepared scene: ``configs/synthhard_r5.yaml`` as
+   it stands (data/synthhard/scan1 through the port's loaders: 200x200,
+   SIFT matches, the widths of ``configs/levels2fm.yaml``, init 400,
+   geoinit 60 x 5, BA 400) in ``--sfm_mode=fast``, as the JAX package's
+   committed run. Five views with a checkpoint after each; each view's
+   row is held to that run's row of the same step
+   (``results/synthhard_r5_metrics.jsonl``): the same view, reproj < 1 px
+   and within 2x, t_err and ate within 2x, the rotation within 2x from 5
+   cameras up (the Procrustes fit of 3-4 near-collinear centres is
+   ill-conditioned). Then a fresh engine resumes from ``model.ckpt``,
+   must adopt the saved optimizer moments and registers the sixth view
+   under the same bars; then ``--get_result --refine_again`` refines
+   every camera (200 steps, K1/K2) and exports the results, each file
+   checked (mesh > 1000 faces with median |SDF| at its vertices below a
+   grid spacing, ``render_cam0.png`` finite, its PSNR printed). K1/K2 are
+   held at every shape the phase launched. Prints the per-view stage
+   times, the checkpoint save / restore ms and size, and the export ms.
 
 Each main path is driven with the launch counts set to 0 just before it
-and read just after; K1 and K2 must have launched in both.
+and read just after; K1 and K2 must have launched in each.
 
 The last lines of stdout are the card's name and power limit, the
 kernels' JSON line and ``{"ok": true, "device": {...}}``.
@@ -101,9 +119,31 @@ TINY_ARGS = [
 #: max(|value|, REF_FLOOR)
 REF_RTOL, REF_FLOOR = 1e-3, 1e-4
 
+#: the prepared scene: configs/synthhard_r5.yaml as it stands (32 views of
+#: data/synthhard/scan1, SIFT matches, 200x200), in the fast mode of the
+#: JAX package's committed run, whose per-view rows it is held to
+PREPARED_ARGS = ["--yaml=" + os.path.join(REPO, "configs", "synthhard_r5.yaml"),
+                 "--sfm_mode=fast"]
+PREPARED_ROWS = os.path.join(REPO, "results", "synthhard_r5_metrics.jsonl")
+#: views registered before the checkpoint, and after the resume
+PREPARED_VIEWS, RESUMED_VIEWS = 5, 6
+#: the refine over every camera before the export
+REFINE_AGAIN_ITERS = 200
+#: a row's reproj / t_err / ate may reach this factor of the JAX row's;
+#: the Procrustes rotation too, from PREPARED_ROT_MIN_CAMS cameras up
+PREPARED_FACTOR, PREPARED_ROT_MIN_CAMS = 2.0, 5
+
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _out_dir(phase):
+    """A fresh output directory of a phase (``output/`` is git-ignored)."""
+    import shutil
+    path = os.path.join(REPO, "output", "chip_smoke", phase)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
 
 
 # --------------------------------------------------------------------------- build
@@ -111,11 +151,13 @@ def log(*a):
 def phase_build():
     from level_s2fm_tpu_torch import kernels
     from level_s2fm_tpu_torch.cpp import minigeom
+    from level_s2fm_tpu_torch.utils import png
     sources = sorted(f[:-3] for f in os.listdir(kernels.CSRC) if f.endswith(".cu"))
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as ex:
         futs = {name: ex.submit(kernels.build, name) for name in sources}
         futs["minigeom"] = ex.submit(minigeom.build)
+        futs["pngfilter"] = ex.submit(png.build)
         built = {name: f.result() for name, f in futs.items()}
     for name in sources:
         kernels.load(name)
@@ -125,6 +167,7 @@ def phase_build():
                 log(f"[build]   {line.strip()}")
     minigeom.load()
     log(f"[build] minigeom: {built['minigeom']}")
+    log(f"[build] pngfilter: {built['pngfilter']}")
     log(f"[build] {time.time() - t0:.1f} s")
 
 
@@ -472,7 +515,8 @@ def phase_init():
     from level_s2fm_tpu_torch.train import build_var
 
     steps = INIT_STEPS
-    opt = build_options(FULL_WIDTH_ARGS + [f"--optim.init.max_iter={steps}"])
+    opt = build_options(FULL_WIDTH_ARGS + [f"--optim.init.max_iter={steps}",
+                                           "--output_path=" + _out_dir("init")])
     model = LevelSfM(opt, seed=int(opt.seed), device="cuda")
     model.load_data(build_var(opt))
     torch.cuda.synchronize()
@@ -652,7 +696,7 @@ def phase_bands():
     from level_s2fm_tpu_torch.train import build_var
 
     opt = build_options(["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
-                         "--sfm_mode=fast"])
+                         "--sfm_mode=fast", "--output_path=" + _out_dir("bands")])
     model = LevelSfM(opt, seed=int(opt.seed), device="cuda")
     model.load_data(build_var(opt))
     fc.reset_launches()
@@ -690,6 +734,152 @@ def phase_bands():
     for k, v in BANDS.items():
         assert math.isfinite(got[k]) and got[k] <= BANDS_FACTOR * v, (k, got[k], v)
     assert rel["0-1"] < 5.0 and rel["0-2"] < 8.0, rel
+
+
+# --------------------------------------------------------------------------- prepared
+
+def _check_prepared_row(row, ref):
+    """One registered view against the JAX package's row of the same step."""
+    got = {k: row[k] for k in ("view", "n_cams", "n_points", "reproj_px",
+                               "rot_err_deg", "t_err", "ate")}
+    got["view"] = int(got["view"])
+    log("[prepared] view " + json.dumps({
+        "port": got, "jax": {k: ref[k] for k in got},
+        "pnp_inliers": row.get("pnp_inliers"), "pnp_ratio": row.get("pnp_ratio"),
+        "triangulated": row.get("triangulated"), "stage_s": row["stage_s"]},
+        default=lambda o: o.tolist()))
+    assert int(row["view"]) == int(ref["view"]), (row["view"], ref["view"])
+    assert row["n_cams"] == ref["n_cams"], (row["n_cams"], ref["n_cams"])
+    f = PREPARED_FACTOR
+    assert row["reproj_px"] < 1.0 and row["reproj_px"] <= f * ref["reproj_px"], got
+    assert row["t_err"] <= f * ref["t_err"] and row["ate"] <= f * ref["ate"], got
+    assert math.isfinite(row["rot_err_deg"]), got
+    if row["n_cams"] >= PREPARED_ROT_MIN_CAMS:
+        assert row["rot_err_deg"] <= f * ref["rot_err_deg"], got
+
+
+def phase_prepared():
+    """The third main path, through the port's CLI entry on the prepared
+    scene: five views with a checkpoint after each, a fresh engine that
+    resumes and registers the sixth, then ``--get_result`` with a refine
+    over every camera and the export. Returns (launch counts, launch
+    shapes)."""
+    import numpy as np
+    import torch
+    from level_s2fm_tpu_torch import train
+    from level_s2fm_tpu_torch.fields import sdf as sdf_mod
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    from level_s2fm_tpu_torch.sfm import optstate
+    from level_s2fm_tpu_torch.utils import obs, png
+    from level_s2fm_tpu_torch.utils.marching_cubes import read_ply
+
+    out = _out_dir("prepared")
+    args = PREPARED_ARGS + ["--output_path=" + out]
+    with open(PREPARED_ROWS) as f:
+        ref = [r for r in map(json.loads, f) if "view" in r]
+    obs.HOST_TIMERS.totals.clear()
+    obs.HOST_TIMERS.counts.clear()
+    walls = {}
+    launches = {"fwd": 0, "bwd": 0}
+    shapes = {"fwd": {}, "bwd": {}}
+
+    def run(name, argv):
+        fc.reset_launches()
+        t0 = time.perf_counter()
+        m = train.main(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        for k in launches:
+            launches[k] += fc.LAUNCHES[k]
+            for s, n in fc.SHAPES[k].items():
+                shapes[k][s] = shapes[k].get(s, 0) + n
+        log(f"[prepared] {name}: {walls[name]:.1f} s, launches "
+            + json.dumps(fc.LAUNCHES) + " by (R, K) "
+            + json.dumps({k: {f"{R}x{K}": n for (R, K), n in v.items()}
+                          for k, v in fc.SHAPES.items()}))
+        return m
+
+    # 1. five views, a checkpoint after each
+    m = run("views", args + [f"--max_views={PREPARED_VIEWS}"])
+    assert len(m.camera_set) == PREPARED_VIEWS and not m.skipped_views, (
+        m.camera_set.cam_ids, m.skipped_views)
+    init = m.initializer
+    log("[prepared] init " + json.dumps({
+        "views": [int(c) for c in m.camera_set.cam_ids[:2]],
+        "steps": int(len(init._metrics["all"])),
+        "loss_last": {k: float(v[-1]) for k, v in init._metrics.items()},
+        "triangulated": [int(v) for v in init.tri_ratio],
+        "rot_error_deg": init.pose_errors[0], "t_error_deg": init.pose_errors[1]}))
+    assert np.all(np.isfinite(init._metrics["all"]))
+    log("[prepared] stage wall s over the run: " + json.dumps(m.timers.summary()))
+    rows = m.view_log
+    assert len(rows) == PREPARED_VIEWS - 2, [r["view"] for r in rows]
+    for row, r in zip(rows, ref):
+        _check_prepared_row(row, r)
+    ckpt = os.path.join(out, "model.ckpt")
+    ckpt_mb = os.path.getsize(ckpt) / 2 ** 20
+    del m
+    torch.cuda.empty_cache()
+
+    # 2. a fresh engine resumes from model.ckpt and registers the next view;
+    # the first phase of the saved label adopts the saved moments
+    with np.load(ckpt, allow_pickle=False) as z:
+        saved = json.loads(str(z["manifest"]))["optim"]
+    optstate.reset()
+    n_adopted = len(optstate.ADOPTED)
+    m = run("resume", args + ["--resume", f"--max_views={RESUMED_VIEWS}"])
+    adopted = optstate.ADOPTED[n_adopted:]
+    log(f"[prepared] resume: checkpoint optimizer {saved}; adopted "
+        f"(label, leaves): {adopted}")
+    assert adopted == [(saved["label"], saved["n_leaves"])], (adopted, saved)
+    assert len(m.camera_set) == RESUMED_VIEWS and len(m.view_log) == 1, (
+        m.camera_set.cam_ids)
+    _check_prepared_row(m.view_log[0], ref[RESUMED_VIEWS - 3])
+    del m
+    torch.cuda.empty_cache()
+
+    # 3. refine over every camera, then the export (errors propagate)
+    m = run("get_result", args + ["--get_result", "--refine_again",
+                                  f"--refine_again_iters={REFINE_AGAIN_ITERS}"])
+    assert np.all(np.isfinite(m.camera_set.all_se3()))
+    for rel in ("model.ckpt", "pointcloud.ply", "cameras.json",
+                "mesh/high_res.ply", "sparse/0/cameras.bin", "sparse/0/images.bin",
+                "sparse/0/points3D.bin", "viewer.html", "render_cam0.png"):
+        assert os.path.getsize(os.path.join(out, rel)) > 0, rel
+    verts, faces = read_ply(os.path.join(out, "mesh", "high_res.ply"))
+    v = verts - verts.mean(0)
+    axes = np.linalg.eigh(np.cov(v.T))[1]
+    spacing = float(np.ptp(v @ axes, axis=0).min()) / (256 - 1)
+    sdf = np.concatenate([sdf_mod.infer_sdf_host(m.params["sdf"], m.sdf_cfg, c)
+                          for c in np.array_split(verts, max(1, len(verts) // 65536))])
+    med = float(np.median(np.abs(sdf)))
+    img = png.read_png(os.path.join(out, "render_cam0.png")).astype(np.float64) / 255.0
+    gt = np.asarray(m.camera_set.cameras[0].img, np.float64)
+    psnr = -10.0 * math.log10(float(np.mean((img - gt) ** 2)))
+    log("[prepared] export " + json.dumps({
+        "mesh_faces": len(faces), "mesh_verts": len(verts),
+        "median_abs_sdf_at_verts": med, "grid_spacing_bound": spacing,
+        "render_cam0_psnr_db": psnr, "n_points": len(m.point_set)}))
+    assert len(faces) > 1000 and med < spacing, (len(faces), med, spacing)
+    assert np.all(np.isfinite(img)) and math.isfinite(psnr)
+    del m
+    torch.cuda.empty_cache()
+
+    ht = obs.HOST_TIMERS
+    mean_ms = {k: ht.totals[k] / ht.counts[k] * 1e3 for k in ht.totals}
+    log("[prepared] " + json.dumps({
+        "wall_s": walls, "launches": launches,
+        "launch_shapes": {k: {f"{R}x{K}": n for (R, K), n in v.items()}
+                          for k, v in shapes.items()},
+        "save_checkpoint_ms": mean_ms["host_checkpoint"],
+        "saves": ht.counts["host_checkpoint"],
+        "restore_checkpoint_ms": mean_ms["host_restore"],
+        "checkpoint_mb": ckpt_mb,
+        "extract_mesh_high_res_ms": mean_ms["export_mesh"],
+        "render_full_image_ms": mean_ms["export_render"],
+        "export_results_ms": mean_ms["export_results"]}))
+    assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
+    return launches, shapes
 
 
 def _layer_split(model, state, batch, n=5):
@@ -834,6 +1024,14 @@ def main():
     log("[launches] init " + json.dumps(launches) + " register "
         + json.dumps(reg_launches))
     phase_bands()
+    log(f"[time] {time.time() - t_start:.1f} s")
+    prep_launches, prep_shapes = phase_prepared()
+    shapes = sorted(set(prep_shapes["fwd"]) | set(prep_shapes["bwd"]))
+    err = hold_composite(shapes, torch.device("cuda"), tag="prepared kernels")
+    for rec, kind in zip(recs, ("fwd", "bwd")):
+        rec["launches"] += prep_launches[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
+    log("[launches] prepared " + json.dumps(prep_launches))
     log(f"[done] {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -3,8 +3,8 @@
 The port's own copy of ``level_s2fm_tpu/config.py`` (the port imports
 nothing of the JAX package): `--a.b.c=v` dot-path sets, bare `--flag` for
 True, `--flag!` for False, recursive dict override, and per-scene nested
-overrides accessed via ``opt.data[scene]``. Writing the options file
-waits with checkpointing.
+overrides accessed via ``opt.data[scene]``, and ``save_options_file``,
+which writes the same ``options.yaml`` text as the JAX package's.
 """
 from __future__ import annotations
 
@@ -193,6 +193,52 @@ def process_options(opt: Opt):
         group = opt.get("group", "default")
         opt.output_path = os.path.join(opt.get("output_root", "output"),
                                        str(group), str(name))
+
+
+def save_options_file(opt: Opt):
+    """Persist the resolved options to ``{output_path}/options.yaml``.
+
+    When an options file from an earlier run exists and differs, the diff
+    is printed; an interactive stdin is asked whether to override, an
+    unattended run overrides it."""
+    import difflib
+    import sys as _sys
+    fname = os.path.join(opt.output_path, "options.yaml")
+
+    def _san(v):
+        if isinstance(v, dict):
+            return {k: _san(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [_san(x) for x in v]
+        if isinstance(v, np.generic):
+            return v.item()
+        return v
+
+    new_text = yaml.safe_dump(_san(to_plain(opt)), default_flow_style=False, indent=4)
+    if os.path.isfile(fname):
+        with open(fname) as f:
+            old_text = f.read()
+        if old_text == new_text:
+            print("existing options file found (identical)")
+        else:
+            print("existing options file found (different from current one):")
+            diff = difflib.unified_diff(old_text.splitlines(), new_text.splitlines(),
+                                        fromfile="existing", tofile="current", lineterm="")
+            for line in list(diff)[:80]:
+                print(line)
+            if _sys.stdin is not None and _sys.stdin.isatty():
+                override = None
+                while override not in ("y", "n"):
+                    override = input("override? (y/n) ")
+                if override == "n":
+                    print("safe exiting...")
+                    raise SystemExit(0)
+            else:
+                print("(non-interactive: overriding options file)")
+    else:
+        print("(creating new options file...)")
+    with open(fname, "w") as f:
+        f.write(new_text)
 
 
 def scene_opt(opt: Opt, key: str, default=None):

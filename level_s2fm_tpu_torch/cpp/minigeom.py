@@ -29,27 +29,38 @@ _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-Wall"]       # those of build.sh
 
 
-def _lib_path() -> str:
-    with open(_SOURCE, "rb") as f:
+def library_path(source: str, stem: str) -> str:
+    """``_build/lib<stem>-<hash of source and flags>.so``."""
+    with open(source, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(_GXX_FLAGS).encode()
                               ).hexdigest()[:12]
-    return os.path.join(_BUILD_DIR, f"libminigeom-{digest}.so")
+    return os.path.join(_BUILD_DIR, f"lib{stem}-{digest}.so")
 
 
-def build() -> str:
-    """Build the shared library with g++ if it is missing; return its path."""
-    path = _lib_path()
+def build_shared(source: str, stem: str) -> str:
+    """Build ``source`` into a shared library with g++ if it is missing;
+    return its path. Raises if the build fails."""
+    path = library_path(source, stem)
     if os.path.exists(path):
         return path
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run(["g++", *_GXX_FLAGS, "-o", tmp, _SOURCE],
+    proc = subprocess.run(["g++", *_GXX_FLAGS, "-o", tmp, source],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"building minigeom failed:\n{proc.stdout}\n"
+        raise RuntimeError(f"building {stem} failed:\n{proc.stdout}\n"
                            f"{proc.stderr}")
     os.replace(tmp, path)
     return path
+
+
+def _lib_path() -> str:
+    return library_path(_SOURCE, "minigeom")
+
+
+def build() -> str:
+    """Build the minigeom library if it is missing; return its path."""
+    return build_shared(_SOURCE, "minigeom")
 
 
 def load() -> ctypes.CDLL:

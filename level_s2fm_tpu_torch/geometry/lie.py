@@ -43,6 +43,14 @@ def pose_compose_pair(pose_a, pose_b):
     return pose_from_Rt(R_new, t_new)
 
 
+def pose_compose(pose_list):
+    """pose_list[-1](...(pose_list[0](x)))."""
+    p = pose_list[0]
+    for q in pose_list[1:]:
+        p = pose_compose_pair(p, q)
+    return p
+
+
 def skew(w):
     """[...,3] -> [...,3,3] skew-symmetric matrix."""
     w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]

@@ -3,8 +3,9 @@
 Counterpart of the part of ``level_s2fm_tpu/geometry/transforms.py`` that
 the SfM pipeline uses: world/cam/img transforms, the pixel grid, camera
 centres and rays, projection, and the Procrustes sim(3) alignment with
-the camera-pose evaluation (an SVD on the host). NDC rays and the
-novel-view trajectory wait with the renderer's extras.
+the camera-pose evaluation (an SVD on the host), and the novel-view
+trajectory of the result export. NDC rays wait with the renderer's
+extras.
 """
 from __future__ import annotations
 
@@ -126,3 +127,17 @@ def evaluate_camera_alignment(pose_aligned, pose_GT):
     t_error = torch.linalg.norm((t_aligned - t_GT)[..., 0], dim=-1)
     ate = torch.sqrt(((t_aligned - t_GT)[..., 0] ** 2).sum(dim=-1).mean())
     return R_error, t_error, ate
+
+
+def get_novel_view_poses(pose_anchor, N=60, scale=1.0):
+    """Circular oscillating novel-view trajectory around a w2c pose
+    [3,4]: N poses [N,3,4]."""
+    theta = torch.arange(N, dtype=torch.float32) / N * 2 * torch.pi
+    R_x = lie.angle_to_rotation_matrix(torch.arcsin(torch.sin(theta) * 0.008), "X")
+    R_y = lie.angle_to_rotation_matrix(torch.arcsin(torch.cos(theta) * 0.008), "Y")
+    pose_rot = lie.pose_from_Rt(R=R_y @ R_x)
+    pose_shift = lie.pose_from_Rt(t=torch.tensor([0.0, 0.0, -0.5 * scale]))
+    pose_shift2 = lie.pose_from_Rt(t=torch.tensor([0.0, 0.0, 0.2 * scale]))
+    pose_oscil = lie.pose_compose([pose_shift, pose_rot, pose_shift2])
+    return lie.pose_compose([pose_oscil, torch.as_tensor(pose_anchor,
+                                                         dtype=torch.float32)[None]])

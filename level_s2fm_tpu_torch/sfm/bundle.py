@@ -8,8 +8,8 @@ pad the camera axis to a bucket (``cam_bucket``): the padded slots repeat
 camera 0 and are masked out of every loss, and the per-camera ray budget
 is rand_rays // padded count, so the batches match the JAX package's.
 Phases that render rebuild the occupancy grid between segments
-(``run_phase_occ_refresh``). The optimizer-state hand-over between calls
-(``optstate``) waits for checkpointing.
+(``run_phase_occ_refresh``). Each run records its optimizer in
+``optstate`` and, after a resume, adopts the saved one.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch
 from ..fields import sdf as sdf_mod
 from ..geometry import transforms as T
 from ..rendering import raymarch as rm
-from . import entities
+from . import entities, optstate
 from .phases import BAPhase, PhaseCfgs, RefinePhase
 
 #: camera-count buckets of the padded camera axis
@@ -186,6 +186,7 @@ class Bundler:
                      "se3_r": torch.as_tensor(se3[:, :3]).to(dev),
                      "se3_t": torch.as_tensor(se3[:, 3:]).to(dev)}
         state = self.phase.init_state(ba_params, self.xyzs0)
+        state["opt"] = optstate.adopt(f"ba_{self.mode}", state["opt"])
         # the occupancy refresh matters only when the phase renders
         if self.cfgs.ren.compact_samples is not None and self.mode != "sfm":
             state, metrics = run_phase_occ_refresh(
@@ -193,6 +194,7 @@ class Bundler:
                 self.max_iter)
         else:
             state, metrics = self.phase.run(state, self.batch, gen)
+        optstate.record(f"ba_{self.mode}", state["opt"])
         self.metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
         reproj = float(self.metrics["reproj_px"][-1])
         if verbose:
@@ -235,12 +237,14 @@ class Refiner:
 
     def run(self, params, gen, verbose=True):
         state = self.phase.init_state(params)
+        state["opt"] = optstate.adopt("refine", state["opt"])
         if self.cfgs.ren.compact_samples is not None:
             state, metrics = run_phase_occ_refresh(
                 self.opt, self.cfgs, self.phase, state, self.batch, gen,
                 self.phase.max_iter)
         else:
             state, metrics = self.phase.run(state, self.batch, gen)
+        optstate.record("refine", state["opt"])
         self.metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
         if verbose:
             print({"phase": "refine", **{k: round(float(v[-1]), 4)

@@ -5,13 +5,14 @@ numpy state; device work happens in the phases. Pose math runs on the
 CPU in float32 through the port's ``geometry.lie`` and
 ``geometry.transforms`` (Procrustes alignment for more than two views).
 Besides the cameras and points: post-BA outlier pruning, the host-side
-mean reprojection error of the BA guard, geometry snapshots, and the
-covisible track observations BA optimizes.
+mean reprojection error of the BA guard, geometry snapshots, the
+covisible track observations BA optimizes, and ``get_parameters`` (the
+checkpointed state).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -143,6 +144,15 @@ class CameraSet:
             print(f"t_error:{t_e}")
         return r_deg, t_e, ate
 
+    def get_parameters(self) -> Dict:
+        """Checkpointable camera state: se3 per camera, dataset ids and
+        keypoint-to-point maps."""
+        return {
+            "pose_para": self.all_se3(),
+            "cam_id": list(self.cam_ids),
+            "idx2d_to_3ds": [c.idx2d_to_3d.copy() for c in self.cameras],
+        }
+
 
 class PointSet:
     """Append-only 3D point store with feature tracks, backed by a
@@ -193,6 +203,12 @@ class PointSet:
     def alive_mask(self) -> np.ndarray:
         """Points still referenced by at least one track entry."""
         return np.asarray([len(t) > 0 for t in self.tracks], bool)
+
+    def get_parameters(self) -> Dict:
+        """Checkpointable point state: xyz and feature tracks (``xyz``
+        and ``tracks`` are also what the COLMAP export reads)."""
+        return {"xyzs": self.all_xyzs().copy(),
+                "feat_tracks": [list(t) for t in self.tracks]}
 
 
 def _reprojection(cam: Camera, pointset: PointSet):

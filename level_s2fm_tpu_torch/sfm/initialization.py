@@ -6,7 +6,8 @@ sphere of radius rad_init, the relative pose by essential-matrix RANSAC
 (minigeom), then ``InitPhase`` fits the fields for max_iter steps (with
 the occupancy grid rebuilt between segments), and the final traced
 surface points are filtered (3-sigma + SDF convergence) into the
-PointSet. The ``tri_trad`` ablation and the match images wait.
+PointSet (the match images go to ``output_path/init_mch/``). The
+``tri_trad`` ablation waits.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from .. import resolve_device
 from ..config import scene_opt
 from ..geometry import lie, transforms as T
-from . import entities, hostgeom
+from . import entities, hostgeom, optstate
 from .phases import InitPhase, PhaseCfgs
 
 
@@ -154,6 +155,7 @@ class Initializer:
     def run(self, params, gen: torch.Generator, verbose: bool = True):
         """Optimize fields, triangulate, seed the point set. Returns params."""
         state = self.phase.init_state(params)
+        state["opt"] = optstate.adopt("init", state["opt"])
         if self.cfgs.ren.compact_samples is not None:
             from .bundle import run_phase_occ_refresh
             state, metrics = run_phase_occ_refresh(
@@ -161,6 +163,7 @@ class Initializer:
                 self.phase.max_iter, segments=8)
         else:
             state, metrics = self.phase.run(state, self.batch, gen)
+        optstate.record("init", state["opt"])
         params = state["params"]
         self._metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
         if verbose:
@@ -191,6 +194,28 @@ class Initializer:
             print(f"{name} rot_error:{r_err}")
             print(f"{name} translation_error:{t_err}")
 
+    def _dump_match_vis(self, mask):
+        """The init's match images (``output_path/init_mch/``): all pairs,
+        and the pairs the filter dropped; a failure never stops the run."""
+        out = self.opt.get("output_path", None)
+        if not out:
+            return
+        try:
+            import os
+            from ..utils import vis
+            cam0, cam1 = self.cameraset.cameras[:2]
+            kp0 = cam0.kypts[self.kp_idx0]
+            kp1 = cam1.kypts[self.kp_idx1]
+            save = os.path.join(out, "init_mch")
+            if (~mask).sum() > 2:
+                vis.draw_matches(cam0.img, cam1.img, kp0[~mask], kp1[~mask],
+                                 os.path.join(save, f"{cam0.id}_{cam1.id}_filter.png"),
+                                 vis_num=100)
+            vis.draw_matches(cam0.img, cam1.img, kp0, kp1,
+                             os.path.join(save, f"{cam0.id}_{cam1.id}_org.png"))
+        except Exception:
+            pass
+
     def _triangulate_host(self, pts_surface, finish):
         """3-sigma + convergence filter, seed the PointSet."""
         n = self._n_kp
@@ -205,6 +230,7 @@ class Initializer:
             mask = gate
         self.tri_ratio = (int(mask.sum()), int(len(mask)))
         print(f"Triangulation ratio {mask.sum()}/{len(mask)}")
+        self._dump_match_vis(mask)
         kp_idx = np.stack([self.kp_idx0, self.kp_idx1], 0)[:, mask]
         tracks = [[(0, int(kp_idx[0, j])), (1, int(kp_idx[1, j]))]
                   for j in range(kp_idx.shape[1])]

@@ -47,12 +47,14 @@ class PhaseAdam:
                  label_lrs: Dict[str, float], gamma: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.leaves: List[torch.Tensor] = []
+        self.labels: List[str] = []
         self.lrs: List = []
         for k in sorted(params):
             if label_of_key[k] == FROZEN:
                 continue
             for leaf in tree_leaves(params[k]):
                 self.leaves.append(leaf)
+                self.labels.append(label_of_key[k])
                 self.lrs.append(label_lrs[label_of_key[k]])
         self.gamma, self.b1, self.b2, self.eps = gamma, b1, b2, eps
         self.mu = [torch.zeros_like(p) for p in self.leaves]

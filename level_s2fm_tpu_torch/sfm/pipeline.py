@@ -9,11 +9,18 @@ row. ``train`` ends cleanly when every view is registered, defers failed
 views (``registration.max_attempts`` > 1) and stops when a retry could
 only fail again. The field parameters are updated in place, so the
 rollback points (the BA guard, the non-finite field check) hold copies.
-Checkpoints and the per-view artifacts wait with the checkpoint slice;
-``ba_trad`` waits with the ablations.
+After the init and after every registered view a checkpoint is written
+(``model.ckpt``, and ``model_<it>.ckpt`` every ``freq.ckpt`` views); a
+restored checkpoint rebuilds the scene (``_reload_scene``) and the run
+goes on from there. Each view's row goes to ``metrics.jsonl`` with the
+JAX package's keys; ``freq.vis`` dumps per-view artifacts, and the end of
+the run writes the point cloud, cameras and viewer page and, when the
+scene has GT depth, the depth evaluation. ``ba_trad`` waits with the
+ablations.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -24,6 +31,8 @@ from .. import resolve_device
 from ..fields import radiance as radf
 from ..fields import sdf as sdf_mod
 from ..rendering import renderer as ren_mod
+from ..utils import checkpoint as ckpt_mod
+from ..utils.obs import HOST_TIMERS, Log, MetricRecorder, PhaseTimers
 from . import entities
 from .bundle import Bundler, Refiner
 from .initialization import Initializer
@@ -66,7 +75,9 @@ class LevelSfM:
         self.camera_set = entities.CameraSet()
         self.point_set = entities.PointSet()
         self.var: Optional[Dict] = None
+        self.it = 0
         self.cam_info_reloaded = None
+        self.pts_info_reloaded = None
         self.initializer: Optional[Initializer] = None
         #: one dict per registered view (the metrics row, the stage
         #: timings and what PnP / geoinit / BA reported)
@@ -76,6 +87,12 @@ class LevelSfM:
         #: (geo_init: the Registration; sfm_refine, local_ba, global_ba:
         #: the Bundler; refine: the Refiner), for probes and profiling
         self.stage_hook = None
+        out = opt.get("output_path", None)
+        self.metrics = MetricRecorder(
+            os.path.join(out, "metrics.jsonl") if out else None,
+            tb_dir=(os.path.join(out, "tb") if out and opt.get("tb", False)
+                    else None))
+        self.timers = PhaseTimers()
 
     def load_data(self, var: Dict):
         """var: kypts, matches, masks, poses_gt, images, intrs, pose_graph."""
@@ -85,6 +102,46 @@ class LevelSfM:
         """A fresh CPU generator, seeded from the engine's stream."""
         seed = int(torch.randint(0, 2 ** 62, (), generator=self.gen))
         return torch.Generator().manual_seed(seed)
+
+    # ------------------------------------------------------------ checkpoints
+    def ckpt_path(self, numbered: Optional[int] = None) -> str:
+        out = self.opt.get("output_path", "output/run")
+        if numbered is None:
+            return os.path.join(out, "model.ckpt")
+        return os.path.join(out, f"model_{numbered}.ckpt")
+
+    def save_checkpoint(self, latest=True):
+        """Write ``model.ckpt``; with ``latest=False`` also ``model_<it>.ckpt``."""
+        ckpt_mod.save_checkpoint_sfm(self.ckpt_path(), self.params,
+                                     self.camera_set, self.point_set, it=self.it)
+        if not latest:
+            ckpt_mod.save_checkpoint_sfm(self.ckpt_path(self.it), self.params,
+                                         self.camera_set, self.point_set,
+                                         it=self.it)
+
+    def restore_checkpoint(self, path: Optional[str] = None):
+        """Load parameters, camera and point state and the iteration count;
+        the scene itself is rebuilt by ``_reload_scene`` (``train`` calls
+        it)."""
+        path = path or self.ckpt_path()
+        with HOST_TIMERS.track("host_restore"):
+            params, cam_info, pts_info, it = ckpt_mod.restore_checkpoint_sfm(
+                path, device=self.device)
+        self.params = params
+        self.cam_info_reloaded = cam_info
+        self.pts_info_reloaded = pts_info
+        self.it = it
+
+    def _reload_scene(self):
+        """Rebuild the CameraSet and PointSet from a restored checkpoint."""
+        info = self.cam_info_reloaded
+        self.point_set.add_points(np.asarray(self.pts_info_reloaded["xyzs"]),
+                                  self.pts_info_reloaded["feat_tracks"])
+        for k, cam_id in enumerate(info["cam_id"]):
+            cam = self._make_camera(int(cam_id))
+            cam.se3 = np.array(info["pose_para"][k], np.float32)
+            cam.idx2d_to_3d = np.array(info["idx2d_to_3ds"][k], np.int64)
+            self.camera_set.add(cam)
 
     def _make_camera(self, cam_id: int) -> entities.Camera:
         var = self.var
@@ -207,11 +264,12 @@ class LevelSfM:
         timers = row["stage_s"]
 
         def timed(name, fn):
-            t0 = time.perf_counter()
-            out = fn()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            timers[name] = timers.get(name, 0.0) + time.perf_counter() - t0
+            with self.timers.track(name):
+                t0 = time.perf_counter()
+                out = fn()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                timers[name] = timers.get(name, 0.0) + time.perf_counter() - t0
             return out
 
         camera_new = self._make_camera(new_id)
@@ -296,8 +354,10 @@ class LevelSfM:
         row.update(n_cams=len(self.camera_set), n_points=len(self.point_set),
                    reproj_px=reproj, rot_err_deg=r_deg, t_err=t_err, ate=ate)
         self.view_log.append(row)
-        print({k: row[k] for k in ("view", "n_cams", "n_points", "reproj_px",
-                                   "rot_err_deg", "t_err", "ate")})
+        keys = ("view", "n_cams", "n_points", "reproj_px", "rot_err_deg",
+                "t_err", "ate")
+        self.metrics.log(self.it, **{k: row[k] for k in keys})
+        print({k: row[k] for k in keys})
         return True
 
     def _probe(self, stage, obj):
@@ -314,6 +374,9 @@ class LevelSfM:
         n_img = len(self.var["images"])
         if len(pose_graph) <= n_img / 2:
             pose_graph = pose_graph + [j for j in range(n_img) if j not in pose_graph]
+        if self.cam_info_reloaded is not None:
+            self._reload_scene()
+            print("reloading finished")
         # a failed view is deferred until another view registers (new
         # points give it new 2D-3D pairs) and retried up to max_attempts
         # times; PnP is seeded, so a retry against an unchanged scene
@@ -325,8 +388,11 @@ class LevelSfM:
             if max_views is not None and len(self.camera_set) >= max_views:
                 break
             if len(self.camera_set) < 2:
-                self.initialize_two_views(pose_graph[0], pose_graph[1],
-                                          verbose=verbose)
+                ids = (self.cam_info_reloaded["cam_id"][:2]
+                       if self.cam_info_reloaded is not None else pose_graph[:2])
+                with self.timers.track("init"):
+                    self.initialize_two_views(ids[0], ids[1], verbose=verbose)
+                self.save_checkpoint(latest=False)
                 continue
             left = [p for p in pose_graph if p not in self.camera_set.cam_ids]
             print(f"---------------- {len(left)} frames left ------------------")
@@ -341,6 +407,7 @@ class LevelSfM:
                 print(f"finish! (skipped unregisterable views: {sorted(left)}"
                       f"{why})")
                 self.skipped_views = sorted(left)
+                self.metrics.log(self.it, skipped_views=sorted(left))
                 break
             new_id = self.select_next_view(eligible, verbose=verbose)
             print(f"-------------the best view next id is {new_id}--------------")
@@ -354,4 +421,77 @@ class LevelSfM:
                       f"requeued")
                 continue
             deferred.clear()
+            self.it += 1
+            self.save_checkpoint(latest=(self.it % int(self.opt.freq.ckpt) != 0))
+            if int(self.opt.freq.get("vis", 0)) and self.it % int(self.opt.freq.vis) == 0:
+                self._view_artifacts(new_id)
+        self._final_artifacts(verbose)
         return True
+
+    def _view_artifacts(self, view_id: int):
+        """Per-view artifacts at ``freq.vis``: point cloud, cameras, a
+        coarse mesh, and a render of the view when ``freq.vis_render`` is
+        set. A failure is reported and the run goes on."""
+        out = self.opt.get("output_path", None)
+        if not out:
+            return
+        try:
+            from ..utils import export as export_mod
+            from ..utils import png
+            vis_dir = os.path.join(out, "vis")
+            os.makedirs(vis_dir, exist_ok=True)
+            export_mod.export_pointcloud(
+                self.point_set,
+                os.path.join(vis_dir, f"{self.it:04d}_pointcloud.ply"))
+            export_mod.export_cameras_json(
+                self.camera_set, os.path.join(vis_dir, f"cam{self.it:04d}.json"))
+            export_mod.extract_mesh(
+                self.params, self.sdf_cfg,
+                os.path.join(vis_dir, f"{self.it:04d}_mesh.ply"),
+                resolution=int(self.opt.freq.get("vis_mesh_res", 64)),
+                grid_boundary=(-0.6, 0.6))
+            if int(self.opt.freq.get("vis_render", 0)):
+                cam = self.camera_set(view_id)
+                img = export_mod.render_full_image(
+                    self.params, self.cfgs, cam.pose(), cam.intr,
+                    self.cfgs.H, self.cfgs.W)
+                png.write_png(os.path.join(vis_dir, f"{self.it:04d}_render.png"),
+                              export_mod._u8(img["rgb"]))
+                self.metrics.log_image(self.it, "render/rgb", img["rgb"])
+                from ..utils import vis as vis_mod
+                self.metrics.log_image(self.it, "render/depth",
+                                       vis_mod.colorize(img["depth"]))
+        except Exception as e:  # artifact dumping must never kill a run
+            Log.warn(f"per-view artifact export failed: {e}")
+
+    def _final_artifacts(self, verbose=True):
+        """End of the run: the GT-depth evaluation when the scene has GT
+        depth, the point cloud, cameras and viewer page, and the timing
+        summaries. A failure is reported and the run goes on."""
+        if self.var is not None and self.var.get("depth_gt") is not None \
+                and len(self.camera_set) >= 2:
+            try:
+                from ..utils import export as export_mod
+                d = export_mod.eval_depth_vs_gt(
+                    self.params, self.sdf_cfg, self.camera_set,
+                    self.var["depth_gt"], verbose=verbose)
+                self.metrics.log(self.it, depth_abs_rel=d["abs_rel"],
+                                 depth_rmse=d["rmse"], depth_px=d["n_px"])
+            except Exception as e:  # eval must never kill a finished run
+                Log.warn(f"depth eval failed: {e}")
+        out = self.opt.get("output_path", None)
+        if out:
+            try:
+                from ..utils import export as export_mod
+                from ..viz.html_viewer import export_html
+                export_mod.export_pointcloud(
+                    self.point_set, os.path.join(out, "pointcloud.ply"))
+                export_mod.export_cameras_json(
+                    self.camera_set, os.path.join(out, "cameras.json"))
+                export_html(out)
+            except Exception as e:  # artifact dumping must never kill a run
+                Log.warn(f"artifact export failed: {e}")
+        if verbose and self.timers.totals:
+            Log.info("phase timing:", self.timers.summary())
+        if verbose and HOST_TIMERS.totals:
+            Log.info("host timing:", HOST_TIMERS.summary())

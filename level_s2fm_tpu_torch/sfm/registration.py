@@ -6,8 +6,9 @@ SDF value and solves the absolute pose (minigeom P3P RANSAC + LM), and
 ``geo_init`` runs ``GeoInitPhase`` (SDF-based triangulation) and accepts
 new points by the tracing-distance mean + std threshold.
 ``score_candidates`` scores NBV candidates when ``nbv_mode`` is not
-``colmap``. The ``tri_trad`` ablation (DLT triangulation) and the PnP
-overlay image wait with the ablations and the artifacts.
+``colmap``. A registered view's PnP inliers are drawn into
+``output_path/pnp/``. The ``tri_trad`` ablation (DLT triangulation)
+waits with the ablations.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from ..fields import sdf as sdf_mod
 from ..geometry import lie, transforms as T
-from . import entities, hostgeom
+from . import entities, hostgeom, optstate
 from .phases import GeoInitPhase, PhaseCfgs
 
 
@@ -166,7 +167,23 @@ class Registration:
         pointset.update_feat_tracks(id_3d_in,
                                     [(new_cam_pos, int(k)) for k in id_2d_in])
         camera_new.idx2d_to_3d[id_2d_in] = id_3d_in
+        self._dump_pnp_overlay(camera_new, id_2d_in)
         return True, ratio, len(id_2d_in)
+
+    def _dump_pnp_overlay(self, camera_new, id_2d_in):
+        """The PnP inlier keypoints drawn over the new view
+        (``output_path/pnp/pnp_<n>.png``); a failure never stops the run."""
+        out = self.opt.get("output_path", None)
+        if not out:
+            return
+        try:
+            import os
+            from ..utils import vis
+            vis.draw_keypoints(
+                camera_new.img, camera_new.kypts[id_2d_in],
+                os.path.join(out, "pnp", f"pnp_{len(self.cameraset)}.png"))
+        except Exception:
+            pass
 
     def _pair_rays(self, cam_from: entities.Camera, cam_with: entities.Camera):
         """Rays from cam_from through its inlier kypts matched with
@@ -298,7 +315,9 @@ class Registration:
             max_iter=int(og.max_iter) * 5, reproj_max=reproj_max)
         self.phase, self.batch = phase, batch
         state = phase.init_state(params)
+        state["opt"] = optstate.adopt("geoinit", state["opt"])
         state, metrics = phase.run(state, batch, gen)
+        optstate.record("geoinit", state["opt"])
         self.metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
         params = state["params"]
         if verbose:
