@@ -69,6 +69,33 @@ failure raises and exits non-zero):
    grid spacing, ``render_cam0.png`` finite, its PSNR printed). K1/K2 are
    held at every shape the phase launched. Prints the per-view stage
    times, the checkpoint save / restore ms and size, and the export ms.
+9. options — phase init's configuration with the SDF / renderer options
+   switched on (``OPTION_SWITCHES``: the dual radiance field, the
+   adaptive VolSDF sampler with ``final_sample_intvs`` 64, the
+   ``paired_dense`` key, and the exact ``reeval_compact`` /
+   ``march_compact`` compactions), ``OPTION_STEPS`` init steps. Losses
+   must be finite and the rgb loss must fall; prints the steady ms per
+   step and the device-busy share beside phase init's, and one 8192-ray
+   march with and without ``march_compact`` (ms each; the tracks must
+   agree to 1e-5).
+10. ablations — (a) the 3-view ``configs/synthetic.yaml`` run under
+   ``--sfm_mode=fast --Ablate_config.tri_trad --Ablate_config.ba_trad``
+   through ``train.main``: every view registers, > 30 points with
+   median | |X| - 0.5 | < 0.1, and the final reproj / rotation /
+   translation errors within 2x of the JAX package's values for the same
+   command, taken over its rounding spread (``TRAD_SPREAD``, from
+   ``trad_spread.py``); it renders nothing, so K1/K2 do not launch.
+   (b) ``polish_trad_ba`` (``--cycles=2 --iters=1500``) on the six-view
+   checkpoint phase prepared leaves: the mean reprojection error must
+   fall and the ATE must not rise; prints each cycle's errors and wall
+   time. (c) one ``tri_trad``-only run of the synthetic scene in
+   ``full`` mode (DLT triangulation with the SDF post-fit, then
+   sfm_refine, BA and refine), where K1/K2 launch.
+
+Phase reference also holds one InitPhase step and one
+``BAPhase('rad_init')`` step under ``OPTION_SWITCHES`` (tiny widths) to
+the CPU's plain versions, and every shape K1/K2 launched in phases
+options and ablations is held against the plain versions.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after; K1 and K2 must have launched in each.
@@ -132,6 +159,42 @@ REFINE_AGAIN_ITERS = 200
 #: a row's reproj / t_err / ate may reach this factor of the JAX row's;
 #: the Procrustes rotation too, from PREPARED_ROT_MIN_CAMS cameras up
 PREPARED_FACTOR, PREPARED_ROT_MIN_CAMS = 2.0, 5
+
+#: the SDF / renderer options of the options phase and of the reference
+#: phase's option steps
+OPTION_SWITCHES = ["--Ablate_config.dual_field", "--SDF.VolSDF.volsdf_sampling",
+                   "--SDF.Hash_config.paired_dense",
+                   "--SDF.VolSDF.reeval_compact=0.5",
+                   "--SDF.VolSDF.march_compact=0.25"]
+#: init steps of the options phase (phase init's INIT_STEPS, halved)
+OPTION_STEPS = 50
+#: the ablations phase's trad run: configs/synthetic.yaml as it stands
+TRAD_ARGS = ["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
+             "--sfm_mode=fast", "--Ablate_config.tri_trad",
+             "--Ablate_config.ba_trad"]
+#: the JAX package's final values of the same run, on the CPU:
+#:   python train.py --cpu --yaml=configs/synthetic.yaml --sfm_mode=fast \
+#:       --Ablate_config.tri_trad --Ablate_config.ba_trad --max_views=3
+#: (reproj_px: its last global trad BA's printed value; the errors:
+#: eval_poses after it), and the median and maximum of the same run over
+#: its rounding spread (``python trad_spread.py --runs=16``: the DLT points
+#: scaled by 1 + 1e-7 n in runs 1-15). The trad BA ends where Adam's step
+#: meets rounding-level gradients, so these values move with rounding:
+#: the 3-camera rotation error spreads 0.028-0.770 deg. A port value may
+#: reach TRAD_FACTOR x the spread's maximum.
+TRAD_KNOWN = {"reproj_px": 0.0398, "rot_err_deg": 0.090923972427845,
+              "t_err": 9.8555872682482e-05}
+TRAD_SPREAD = {"median": {"reproj_px": 0.03955, "rot_err_deg": 0.08582666888833046,
+                          "t_err": 6.770097752450965e-05},
+               "max": {"reproj_px": 0.046, "rot_err_deg": 0.7703208923339844,
+                       "t_err": 0.0003573574067559093}}
+TRAD_FACTOR = 2.0
+#: the pose polish of the prepared run, as results/synthhard_r5.md ran it
+POLISH_ARGS = ["--cycles=2", "--iters=1500"]
+#: DLT triangulation under the neural BA and refine: configs/synthetic.yaml
+#: in full mode
+TRI_TRAD_ARGS = ["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
+                 "--Ablate_config.tri_trad"]
 
 
 def log(*a):
@@ -376,6 +439,7 @@ def phase_reference():
     assert fc.LAUNCHES["fwd"] > launches["fwd"] and fc.LAUNCHES["bwd"] > launches["bwd"]
     _compare_losses("InitPhase", losses["cpu"], losses["cuda"])
     _reference_registration()
+    _reference_options()
 
 
 def _compare_losses(name, cpu, gpu):
@@ -472,6 +536,59 @@ def _reference_registration():
         f"diff {err:.2e} of its largest entry (bar {REF_RTOL:g}); cpu "
         f"{gc.numpy().round(5).tolist()} gpu {gg.numpy().round(5).tolist()}")
     assert float(gc.abs().max()) > 0 and err <= REF_RTOL, err
+
+
+def _reference_options():
+    """One InitPhase step and one BAPhase('rad_init') step (views 0 and 1,
+    poses frozen) under OPTION_SWITCHES at the tiny widths, on the CPU
+    (plain versions) and on the GPU (kernels), from the same state and
+    the same draws; the rad_init step's poses must stay bit for bit."""
+    import torch
+    from level_s2fm_tpu_torch.config import build_options
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    from level_s2fm_tpu_torch.sfm import bundle
+    from level_s2fm_tpu_torch.sfm.initialization import Initializer
+    from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
+    from level_s2fm_tpu_torch.train import build_var
+
+    opt = build_options(TINY_ARGS + OPTION_SWITCHES + ["--optim.init.max_iter=3"])
+    var = build_var(opt)
+    m = LevelSfM(opt, seed=0, device="cpu")
+    m.load_data(var)
+    params0 = _tree_to(m.params, "cpu")
+    m.train(max_views=2, verbose=False)
+    HW = m.cfgs.H * m.cfgs.W
+    rays = torch.randperm(HW, generator=torch.Generator().manual_seed(6))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        r = res[dev] = {}
+        md = LevelSfM(opt, seed=0, device=dev)
+        md.load_data(var)
+        init = Initializer(opt, md.cfgs, md.camera_set, md.point_set,
+                           _init_var(var), device=dev)
+        st = init.phase.init_state(_tree_to(params0, dev))
+        batch = dict(init.batch)
+        batch["occ"] = bundle.maybe_build_occ(opt, md.cfgs, st["params"])
+        before = dict(fc.LAUNCHES)
+        r["InitPhase (options)"] = init.phase.step(
+            st, batch, torch.Generator().manual_seed(0), rays_idx=torch.arange(HW))
+        b = bundle.Bundler(opt, m.cfgs, m.camera_set, m.point_set,
+                           cam_pick_ids=[0, 1], mode="rad_init", device=dev)
+        params = _ba_params(m, b, dev)
+        se3 = (params["se3_r"].clone(), params["se3_t"].clone())
+        st = b.phase.init_state(params, b.xyzs0.clone())
+        batch = dict(b.batch)
+        batch["occ"] = bundle.maybe_build_occ(opt, m.cfgs, params)
+        n_rays = min(m.cfgs.rand_rays // batch["images"].shape[0], HW)
+        r["BAPhase rad_init (options)"] = b.phase.step(
+            st, batch, None, rays_idx=rays[:n_rays], trace_cam=1)
+        assert torch.equal(params["se3_r"], se3[0]) and torch.equal(params["se3_t"], se3[1])
+        if dev == "cuda":
+            assert fc.LAUNCHES["fwd"] - before["fwd"] >= 2, fc.LAUNCHES
+            assert fc.LAUNCHES["bwd"] - before["bwd"] >= 2, fc.LAUNCHES
+    for name in res["cpu"]:
+        _compare_losses(name, {k: float(v) for k, v in res["cpu"][name].items()},
+                        {k: float(v) for k, v in res["cuda"][name].items()})
 
 
 def _ba_params(m, b, dev):
@@ -574,7 +691,7 @@ def phase_init():
         "t_error_deg": t_err,
     }
     log("[init] " + json.dumps(summary))
-    return model, launches
+    return model, launches, summary
 
 
 # --------------------------------------------------------------------------- register
@@ -882,6 +999,182 @@ def phase_prepared():
     return launches, shapes
 
 
+# --------------------------------------------------------------------------- options
+
+def phase_options(init_summary):
+    """Phase init's configuration with OPTION_SWITCHES: OPTION_STEPS init
+    steps, then the steady step and one 8192-ray march with and without
+    march_compact. Returns (launch counts, launch shapes)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from level_s2fm_tpu_torch.config import build_options
+    from level_s2fm_tpu_torch.fields import sdf as sdf_mod
+    from level_s2fm_tpu_torch.geometry import transforms as T
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    from level_s2fm_tpu_torch.sfm import bundle
+    from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
+    from level_s2fm_tpu_torch.train import build_var
+
+    steps = OPTION_STEPS
+    opt = build_options(FULL_WIDTH_ARGS + OPTION_SWITCHES + [
+        # configs/levels2fm.yaml's width of the adaptive sampler's final
+        # samples, which configs/synthetic.yaml cuts to 32
+        "--SDF.VolSDF.final_sample_intvs=64",
+        f"--optim.init.max_iter={steps}", "--output_path=" + _out_dir("options")])
+    model = LevelSfM(opt, seed=int(opt.seed), device="cuda")
+    model.load_data(build_var(opt))
+    cfg = model.cfgs
+    assert (cfg.rad.dual_field and cfg.ren.volsdf_sampling and cfg.sdf.grid.paired_dense
+            and cfg.sdf.reeval_compact == 0.5 and cfg.sdf.march_compact == 0.25)
+    torch.cuda.synchronize()
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    model.train(max_views=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    shapes = {k: dict(v) for k, v in fc.SHAPES.items()}
+    init = model.initializer
+    m = init._metrics
+    assert len(m["all"]) == steps, len(m["all"])
+    for k, v in m.items():
+        assert np.all(np.isfinite(v)), k
+    assert float(np.sum(m["nonfinite"])) == 0.0
+    assert m["rgb"][-1] < m["rgb"][0], (m["rgb"][0], m["rgb"][-1])
+    assert launches["fwd"] >= steps and launches["bwd"] >= steps, launches
+    assert set(model.params["rad"]) == {"geo_mlp", "rad_mlp", "table"}
+
+    state = init.phase.init_state(_tree_to(model.params, "cuda"))
+    batch = dict(init.batch)
+    batch["occ"] = bundle.maybe_build_occ(opt, cfg, state["params"])
+    gen = torch.Generator().manual_seed(1)
+    init.phase.step(state, batch, gen)
+    torch.cuda.synchronize()
+    k_steps = 5
+    t1 = time.perf_counter()
+    for _ in range(k_steps):
+        init.phase.step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / k_steps * 1e3
+    prof = _profile_steps(init.phase, state, batch, gen)
+
+    # one 8192-ray march of the trained field, with and without march_compact
+    params = model.params
+    HW = cfg.H * cfg.W
+    idx = torch.randperm(HW, generator=torch.Generator().manual_seed(2))
+    idx = idx[:min(cfg.rand_rays // 2, HW)].to(model.device)
+    c, r = T.get_center_and_ray(batch["poses"], batch["intr"], batch["grid"][idx])
+    c1, r1 = c.reshape(1, -1, 3), r.reshape(1, -1, 3)
+    cfg_plain = dataclasses.replace(cfg.sdf, march_compact=0.0)
+    march, march_ms = {}, {}
+    for name, scfg in (("march_compact", cfg.sdf), ("plain", cfg_plain)):
+        march[name] = sdf_mod.sphere_march(params["sdf"], scfg, c1, r1)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            sdf_mod.sphere_march(params["sdf"], scfg, c1, r1)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t2) * 1e3)
+        march_ms[name] = sorted(ts)[2]
+    a, b = march["march_compact"], march["plain"]
+    assert a.last_idx == b.last_idx, (a.last_idx, b.last_idx)
+    march_err = max(float((x - y).abs().max()) for x, y in
+                    ((a.track, b.track), (a.acc_e, b.acc_e), (a.min_dis, b.min_dis),
+                     (a.max_dis, b.max_dis)))
+    summary = {
+        "steps": steps, "init_wall_s": wall, "ms_per_step_in_init": wall / steps * 1e3,
+        "ms_per_step_steady": step_ms,
+        "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+        "device_busy_share": prof["device_busy_ms_per_step"] / step_ms,
+        "phase_init_ms_per_step_steady": init_summary["ms_per_step_steady"],
+        "phase_init_device_busy_share":
+            init_summary["profile"]["device_busy_share_of_steady_step"],
+        "top_op_device_ms_per_step": prof["top_op_device_ms_per_step"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches,
+        "launch_shapes": {k: {f"{R}x{K}": n for (R, K), n in v.items()}
+                          for k, v in shapes.items()},
+        "loss_first": {k: float(v[0]) for k, v in m.items()},
+        "loss_last": {k: float(v[-1]) for k, v in m.items()},
+        "march_8192_rays_ms": march_ms, "march_steps": a.last_idx + 1,
+        "march_compact_max_abs_diff": march_err}
+    log("[options] " + json.dumps(summary))
+    assert march_err <= 1e-5, march_err
+    return launches, shapes
+
+
+# --------------------------------------------------------------------------- ablations
+
+def phase_ablations():
+    """(a) the trad run against the JAX package's values, (b) the pose
+    polish of phase prepared's checkpoint, (c) a tri_trad-only run in
+    full mode. Returns the launch counts and shapes of (c)."""
+    import numpy as np
+    import torch
+    from level_s2fm_tpu_torch import polish_trad_ba, train
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+
+    # (a) DLT triangulation + classic BA; nothing is rendered
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    m = train.main(TRAD_ARGS + ["--max_views=3", "--output_path=" + _out_dir("trad")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert m.camera_set.cam_ids == [0, 1, 2] and not m.skipped_views, m.camera_set.cam_ids
+    r = np.linalg.norm(m.point_set.all_xyzs(), axis=-1)
+    med = float(np.median(np.abs(r - 0.5)))
+    rot, t_err, ate = m.camera_set.eval_poses(verbose=False)
+    got = {"reproj_px": m.view_log[-1]["reproj_px"], "rot_err_deg": rot, "t_err": t_err}
+    log("[ablations] trad " + json.dumps({
+        "final": got, "ate": ate, "jax": TRAD_KNOWN, "jax_spread": TRAD_SPREAD,
+        "factor": TRAD_FACTOR,
+        "ratio_to_jax": {k: got[k] / v for k, v in TRAD_KNOWN.items()},
+        "n_points": len(m.point_set), "median_abs_radius_err": med, "wall_s": wall,
+        "stage_s": m.view_log[-1]["stage_s"], "launches": dict(fc.LAUNCHES)}))
+    assert len(m.point_set) > 30 and med < 0.1, (len(m.point_set), med)
+    for k, v in TRAD_SPREAD["max"].items():
+        assert math.isfinite(got[k]) and got[k] <= TRAD_FACTOR * v, (k, got[k], v)
+    assert fc.LAUNCHES == {"fwd": 0, "bwd": 0}, fc.LAUNCHES
+    del m
+
+    # (b) global trad BA cycles on phase prepared's six-view checkpoint
+    run_dir = os.path.join(REPO, "output", "chip_smoke", "prepared")
+    t0 = time.perf_counter()
+    res = polish_trad_ba.main([run_dir] + PREPARED_ARGS + POLISH_ARGS)
+    wall = time.perf_counter() - t0
+    before, after = res["before"], res["cycles"][-1]
+    log("[ablations] polish " + json.dumps({
+        "before": before, "cycles": res["cycles"], "wall_s": wall,
+        "checkpoint": os.path.relpath(res["path"], REPO)}))
+    assert after["reproj_px"] < before["reproj_px"], (before, after)
+    assert after["ate"] <= before["ate"], (before, after)
+    torch.cuda.empty_cache()
+
+    # (c) DLT triangulation under the neural BA and refine (full mode)
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    m = train.main(TRI_TRAD_ARGS + ["--max_views=3",
+                                    "--output_path=" + _out_dir("tri_trad_full")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    shapes = {k: dict(v) for k, v in fc.SHAPES.items()}
+    assert m.camera_set.cam_ids == [0, 1, 2] and not m.skipped_views, m.camera_set.cam_ids
+    row = m.view_log[-1]
+    for k in ("reproj_px", "rot_err_deg", "t_err", "ate"):
+        assert math.isfinite(row[k]), (k, row[k])
+    log("[ablations] tri_trad full " + json.dumps({
+        k: row[k] for k in ("view", "n_points", "pnp_inliers", "triangulated",
+                            "reproj_px", "rot_err_deg", "t_err", "ate", "stage_s")}
+        | {"wall_s": wall, "launches": launches,
+           "launch_shapes": {k: {f"{R}x{K}": n for (R, K), n in v.items()}
+                             for k, v in shapes.items()}}, default=lambda o: o.tolist()))
+    assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
+    return launches, shapes
+
+
 def _layer_split(model, state, batch, n=5):
     """Wall ms (synchronised) of the init step's main parts, each run
     alone on the steady state: the 8192-ray march, its differentiable
@@ -1010,7 +1303,7 @@ def main():
     phase_adapter()
     phase_reference()
     log(f"[time] {time.time() - t_start:.1f} s")
-    model, launches = phase_init()
+    model, launches, init_summary = phase_init()
     log(f"[time] {time.time() - t_start:.1f} s")
     reg_launches, reg_shapes = phase_register(model)
     del model
@@ -1032,6 +1325,19 @@ def main():
         rec["launches"] += prep_launches[kind]
         rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
     log("[launches] prepared " + json.dumps(prep_launches))
+    log(f"[time] {time.time() - t_start:.1f} s")
+    opt_launches, opt_shapes = phase_options(init_summary)
+    log(f"[time] {time.time() - t_start:.1f} s")
+    abl_launches, abl_shapes = phase_ablations()
+    log(f"[time] {time.time() - t_start:.1f} s")
+    shapes = sorted(set(opt_shapes["fwd"]) | set(opt_shapes["bwd"])
+                    | set(abl_shapes["fwd"]) | set(abl_shapes["bwd"]))
+    err = hold_composite(shapes, torch.device("cuda"), tag="options/ablations kernels")
+    for rec, kind in zip(recs, ("fwd", "bwd")):
+        rec["launches"] += opt_launches[kind] + abl_launches[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
+    log("[launches] options " + json.dumps(opt_launches) + " ablations "
+        + json.dumps(abl_launches))
     log(f"[done] {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,6 @@
 """Multiresolution hash-grid encoding (instant-NGP style) in PyTorch.
 
-Counterpart of ``level_s2fm_tpu/fields/hashgrid.py`` (default path; the
-``paired_dense`` gather waits). Plain tensor ops: the 8-corner gather from
+Counterpart of ``level_s2fm_tpu/fields/hashgrid.py``. Plain tensor ops: the 8-corner gather from
 the [L,T,F] table, trilinear interpolation, and the analytic spatial
 Jacobian from the same gathered corners. On Hopper the gather and its
 scatter-add backward become hand kernels in a later slice (ROADMAP H1/H2).
@@ -16,6 +15,12 @@ gather is an autograd.Function whose backward ``index_add_``s f32
 cotangents into an f32 table gradient. A plain ``table.to(bfloat16)[idx]``
 would round the cotangent to bf16, which the JAX package measured to
 drive init training to NaN.
+
+``paired_dense`` (the JAX package's two-row gather of x-adjacent corners
+on the dense levels) changed only the fetch shape, because a TPU gather
+costs per row; its values, spatial Jacobian (zero where a position is
+clamped to the grid edge), table gradient and double backward are the
+default path's. The key is accepted and the default gather runs.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ class HashGridConfig:
     per_level_scale: float = 1.38
     include_input: bool = True
     compute_dtype: str = "float32"
+    # accepted for the JAX package's configs; the same math runs either way
+    paired_dense: bool = False
 
     @property
     def table_size(self) -> int:
@@ -64,8 +71,6 @@ def config_from_opt(opt, bound_extent: Optional[float] = None) -> HashGridConfig
     F = hc.get("n_features_per_level", 2)
     log2_T = hc.get("log2_hashmap_size", 19)
     N_min = hc.get("base_resolution", 16)
-    if hc.get("paired_dense", False):
-        raise NotImplementedError("Hash_config.paired_dense is not ported yet")
     if bound_extent is None:
         bound_extent = float(opt.data.bound_max[0] - opt.data.bound_min[0])
     scale = bound_extent / 2
@@ -73,7 +78,8 @@ def config_from_opt(opt, bound_extent: Optional[float] = None) -> HashGridConfig
     return HashGridConfig(n_levels=L, n_features_per_level=F,
                           log2_hashmap_size=log2_T, base_resolution=N_min,
                           per_level_scale=b,
-                          compute_dtype=str(hc.get("compute_dtype", "float32")))
+                          compute_dtype=str(hc.get("compute_dtype", "float32")),
+                          paired_dense=bool(hc.get("paired_dense", False)))
 
 
 def init_table(cfg: HashGridConfig, generator: torch.Generator,

@@ -26,8 +26,15 @@ The march follows the JAX ``fori_loop`` step for step. Where the JAX code
 skips work with ``lax.cond`` on "any ray still unfinished", this code
 reads that flag on the host (one sync per step) and skips the eval; once
 no ray is unfinished every later JAX step is a no-op, so the loop stops
-there and the unexecuted rows stay zero as in JAX. The ``reeval_compact``
-and ``march_compact`` knobs (default 0) are not ported yet.
+there and the unexecuted rows stay zero as in JAX.
+
+Two exact compactions (default off) skip hash-grid evaluations without
+changing any value: ``march_compact`` evaluates a march step only at
+its unfinished rays once at most ``march_compact * BN`` are left, and
+``reeval_compact`` evaluates each distinct track point once (a
+converged ray repeats its last point) and fills the repeats from it.
+Both take their "at most K" decision from the count the march already
+reads each step, so they add no host sync.
 
 Field parameters: {"table": [L,T,F], "mlp": {"layers": [...]}, "beta": [1]}.
 """
@@ -68,6 +75,13 @@ class SDFConfig:
     sdf_threshold: float = 1e-3
     iters_max: int = 20
     res: int = 100  # `opt.Res` — sphere-trace convergence resolution
+    # >0: evaluate each distinct track point once in the re-eval, when
+    # the march's distinct points fit a budget of this fraction of
+    # iters_max * BN (else the full eval); see sphere_reeval
+    reeval_compact: float = 0.0
+    # >0: evaluate a march step only at its unfinished rays once at most
+    # this fraction of BN is unfinished (else the full eval)
+    march_compact: float = 0.0
 
     @property
     def feat_dim(self) -> int:
@@ -88,9 +102,6 @@ class SDFConfig:
 
 def config_from_opt(opt) -> SDFConfig:
     vs = opt.SDF.VolSDF
-    for knob in ("reeval_compact", "march_compact"):
-        if float(vs.get(knob, 0.0) or 0.0) > 0.0:
-            raise NotImplementedError(f"SDF.VolSDF.{knob} is not ported yet")
     return SDFConfig(
         grid=hashgrid.config_from_opt(opt),
         layers=tuple(opt.SDF.arch.layers),
@@ -109,6 +120,8 @@ def config_from_opt(opt) -> SDFConfig:
         sdf_threshold=float(vs.sdf_threshold),
         iters_max=int(vs.iters_max_st),
         res=int(opt.get("Res", 100)),
+        reeval_compact=float(vs.get("reeval_compact", 0.0) or 0.0),
+        march_compact=float(vs.get("march_compact", 0.0) or 0.0),
     )
 
 
@@ -231,6 +244,15 @@ class SphereMarch(NamedTuple):
     max_dis: torch.Tensor       # [BN]
     acc_e: torch.Tensor         # [BN] backward-march accumulated depth
     valid: torch.Tensor         # [BN] ray-AABB hit mask
+    # distinct track rows of the whole march (a bound for any slice of
+    # it); counted only with reeval_compact, else -1
+    n_uniq: int = -1
+
+
+def _active_budget(frac: float, n: int) -> int:
+    """The compaction budget K of a fraction ``frac`` of ``n`` slots (0:
+    off), as the JAX package sizes it."""
+    return max(int(frac * n), 1) if 0.0 < frac < 1.0 else 0
 
 
 @torch.no_grad()
@@ -252,6 +274,19 @@ def sphere_march(params, cfg: SDFConfig, ray0: torch.Tensor,
     def sdf_at(pts):
         return infer_sdf(params, cfg, pts)[..., 0]
 
+    K_m = _active_budget(cfg.march_compact, BN)
+
+    def sdf_at_active(pts, active, n_active):
+        """sdf at the active rays (0 elsewhere, which the caller masks):
+        only those are evaluated when they fit the budget K_m."""
+        if K_m == 0 or K_m >= BN or n_active > K_m:
+            return sdf_at(pts)
+        score = active.to(pts.dtype)
+        sel = torch.topk(score, K_m).indices          # the active rays first
+        v = sdf_at(pts[sel]) * score[sel]             # zero the fillers
+        return torch.zeros(BN, dtype=pts.dtype, device=dev).index_copy_(0, sel, v)
+
+    count_uniq = 0.0 < cfg.reeval_compact < 1.0
     start0 = o + min_dis[:, None] * d
     nsdf_s = sdf_at(start0)
     nsdf_e = sdf_at(o + max_dis[:, None] * d)
@@ -259,7 +294,7 @@ def sphere_march(params, cfg: SDFConfig, ray0: torch.Tensor,
     unf_s = torch.ones(BN, dtype=torch.bool, device=dev)
     unf_e = torch.ones(BN, dtype=torch.bool, device=dev)
     track = torch.zeros((cfg.iters_max, BN, 3), dtype=dt, device=dev)
-    n_exec = 0
+    n_exec, n_uniq = 0, BN
     for i in range(cfg.iters_max):
         curr_s = torch.where(torch.abs(nsdf_s) <= thr, 0.0, nsdf_s)
         curr_e = torch.where(torch.abs(nsdf_e) <= thr, 0.0, nsdf_e)
@@ -269,18 +304,26 @@ def sphere_march(params, cfg: SDFConfig, ray0: torch.Tensor,
         else:
             new_unf_s = unf_s & (torch.abs(curr_s) > thr)
             new_unf_e = unf_e & (torch.abs(curr_e) > thr)
-        any_s, any_e = torch.stack([new_unf_s.any(), new_unf_e.any()]).tolist()
-        if not any_s:
+        pts_before = o + acc_s[:, None] * d    # what the track appends
+        counts = [new_unf_s.sum(), new_unf_e.sum()]
+        if count_uniq and i > 0:
+            counts.append((pts_before != track[i - 1]).any(dim=-1).sum())
+        # the step's one host read: unfinished rays of each side, and the
+        # row's distinct points
+        n_s, n_e, *moved = torch.stack(counts).tolist()
+        if not n_s:
             # no step runs from here on: every later JAX step is a no-op
             break
-        track[i] = o + acc_s[:, None] * d        # positions BEFORE the step
+        track[i] = pts_before
         n_exec = i + 1
+        n_uniq += sum(moved)
         acc_s = torch.minimum(acc_s + curr_s, max_dis)
         acc_e2 = torch.minimum(acc_e + curr_e, max_dis)
-        nsdf_s = torch.where(new_unf_s, sdf_at(o + acc_s[:, None] * d), nsdf_s)
-        if any_e:
-            nsdf_e = torch.where(new_unf_e, sdf_at(o + acc_e2[:, None] * d),
-                                 nsdf_e)
+        nsdf_s = torch.where(new_unf_s, sdf_at_active(
+            o + acc_s[:, None] * d, new_unf_s, n_s), nsdf_s)
+        if n_e:
+            nsdf_e = torch.where(new_unf_e, sdf_at_active(
+                o + acc_e2[:, None] * d, new_unf_e, n_e), nsdf_e)
         acc_e = acc_e2
         order_ok = acc_s < acc_e
         unf_s = new_unf_s & order_ok
@@ -292,7 +335,8 @@ def sphere_march(params, cfg: SDFConfig, ray0: torch.Tensor,
     contrib[:max(n_exec, 1)] = True
     return SphereMarch(track=track, contrib=contrib,
                        last_idx=max(n_exec, 1) - 1, min_dis=min_dis,
-                       max_dis=max_dis, acc_e=acc_e, valid=valid)
+                       max_dis=max_dis, acc_e=acc_e, valid=valid,
+                       n_uniq=n_uniq if count_uniq else -1)
 
 
 def march_slice(m: SphereMarch, lo: int, hi) -> SphereMarch:
@@ -301,7 +345,28 @@ def march_slice(m: SphereMarch, lo: int, hi) -> SphereMarch:
     return SphereMarch(track=m.track[:, lo:hi], contrib=m.contrib,
                        last_idx=m.last_idx, min_dis=m.min_dis[lo:hi],
                        max_dis=m.max_dis[lo:hi], acc_e=m.acc_e[lo:hi],
-                       valid=m.valid[lo:hi])
+                       valid=m.valid[lo:hi], n_uniq=m.n_uniq)
+
+
+def _reeval_track_compact(params, cfg: SDFConfig, track, K: int):
+    """sdf along ``track`` [n,BN,3] with each ray's distinct points
+    evaluated once (at most K of them, selected by topk and scattered
+    back) and the repeats of a converged ray's last point filled from
+    it, so the sum and the gradient (each repeat routes its cotangent to
+    the one evaluated point) are those of the full eval. Repeats occur
+    only as a ray's frozen tail."""
+    n, BN = track.shape[0], track.shape[1]
+    same = (track[1:] == track[:-1]).all(dim=-1)                 # [n-1,BN]
+    uniq = torch.cat([torch.ones_like(same[:1]), ~same], dim=0)
+    idxs = torch.arange(n, device=track.device)[:, None]
+    k_last = torch.where(uniq, idxs, -1).amax(dim=0)              # [BN]
+    score = uniq.reshape(-1).to(track.dtype)
+    sel = torch.topk(score, K).indices                            # distinct first
+    v = infer_sdf(params, cfg, track.reshape(-1, 3)[sel])[..., 0] * score[sel]
+    vals = torch.zeros(n * BN, dtype=v.dtype, device=v.device).index_put(
+        (sel,), v).reshape(n, BN)
+    last_vals = vals.gather(0, k_last[None])
+    return torch.where(idxs <= k_last[None], vals, last_vals)
 
 
 def sphere_reeval(params, cfg: SDFConfig, m: SphereMarch,
@@ -314,8 +379,12 @@ def sphere_reeval(params, cfg: SDFConfig, m: SphereMarch,
     track) are evaluated: the others are masked out of every output.
     """
     B, N = ray0.shape[0], ray0.shape[1]
-    n = m.last_idx + 1
-    sdf_tracks = infer_sdf(params, cfg, m.track[:n])[..., 0]    # [n, BN]
+    n, BN = m.last_idx + 1, m.track.shape[1]
+    K = min(_active_budget(cfg.reeval_compact, cfg.iters_max * BN), n * BN)
+    if 0 <= m.n_uniq <= K < n * BN:
+        sdf_tracks = _reeval_track_compact(params, cfg, m.track[:n], K)
+    else:
+        sdf_tracks = infer_sdf(params, cfg, m.track[:n])[..., 0]  # [n, BN]
     d_pred = torch.sum(sdf_tracks, dim=0) + m.min_dis
     d_pred = torch.minimum(d_pred, m.max_dis)
     sdf_last = sdf_tracks[m.last_idx]

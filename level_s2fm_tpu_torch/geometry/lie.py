@@ -4,9 +4,8 @@ Counterpart of ``level_s2fm_tpu/geometry/lie.py`` for what the SfM
 pipeline and ``CameraSet.eval_poses`` use: [R|t] composition and
 inversion, the se3/SO3 exp/log maps with their small-angle branches
 (``torch.where`` on a substituted operand, so gradients stay finite at
-0), Euler rotations, and the pose-error measures. Batched over leading
-dims. Quaternions and ``slerp_pose`` have no caller on the main path
-and wait with the off-path items.
+0), Euler rotations, the pose-error measures, quaternions (w, x, y, z) and
+``slerp_pose``. Batched over leading dims.
 """
 from __future__ import annotations
 
@@ -131,6 +130,72 @@ def SE3_to_se3(Rt, eps=1e-8):
     invV = _eye(Rt) - 0.5 * wx + coef * (wx @ wx)
     u = (invV @ t)[..., 0]
     return torch.cat([w, u], dim=-1)
+
+
+# ----------------------------------------------------------------------------- quaternions
+
+def q_to_R(q):
+    """Quaternion (w,x,y,z) [...,4] -> rotation matrix [...,3,3]."""
+    qa, qb, qc, qd = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (qc ** 2 + qd ** 2), 2 * (qb * qc - qa * qd),
+                     2 * (qa * qc + qb * qd)], dim=-1),
+        torch.stack([2 * (qb * qc + qa * qd), 1 - 2 * (qb ** 2 + qd ** 2),
+                     2 * (qc * qd - qa * qb)], dim=-1),
+        torch.stack([2 * (qb * qd - qa * qc), 2 * (qa * qb + qc * qd),
+                     1 - 2 * (qb ** 2 + qc ** 2)], dim=-1),
+    ], dim=-2)
+
+
+def R_to_q(R, eps=1e-8):
+    """Rotation matrix -> quaternion (w,x,y,z); principal branch."""
+    R00, R11, R22 = R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]
+    t = R00 + R11 + R22
+    qa = 0.5 * torch.sqrt(torch.clamp(1 + t, min=eps))
+    qb = torch.sign(R[..., 2, 1] - R[..., 1, 2]) * 0.5 * torch.sqrt(
+        torch.clamp(1 + R00 - R11 - R22, min=eps))
+    qc = torch.sign(R[..., 0, 2] - R[..., 2, 0]) * 0.5 * torch.sqrt(
+        torch.clamp(1 - R00 + R11 - R22, min=eps))
+    qd = torch.sign(R[..., 1, 0] - R[..., 0, 1]) * 0.5 * torch.sqrt(
+        torch.clamp(1 - R00 - R11 + R22, min=eps))
+    return torch.stack([qa, qb, qc, qd], dim=-1)
+
+
+def q_invert(q):
+    qa, qb, qc, qd = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    norm2 = torch.sum(q * q, dim=-1, keepdim=True)
+    return torch.stack([qa, -qb, -qc, -qd], dim=-1) / norm2
+
+
+def q_product(q1, q2):
+    a1, b1, c1, d1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    a2, b2, c2, d2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack([
+        a1 * a2 - b1 * b2 - c1 * c2 - d1 * d2,
+        a1 * b2 + b1 * a2 + c1 * d2 - d1 * c2,
+        a1 * c2 - b1 * d2 + c1 * a2 + d1 * b2,
+        a1 * d2 + b1 * c2 - c1 * b2 + d1 * a2,
+    ], dim=-1)
+
+
+def slerp_pose(pose0, pose1, t: float):
+    """Spherical interpolation of the rotations and linear interpolation
+    of the translations of two [3,4] poses."""
+    q0 = R_to_q(pose0[:3, :3])
+    q1 = R_to_q(pose1[:3, :3])
+    dot = torch.sum(q0 * q1)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.abs(dot)
+    theta = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    big = sin_theta > 1e-6
+    den = torch.clamp(sin_theta, min=1e-12)
+    w0 = torch.where(big, torch.sin((1 - t) * theta) / den, 1 - t)
+    w1 = torch.where(big, torch.sin(t * theta) / den, t)
+    q = w0 * q0 + w1 * q1
+    q = q / torch.linalg.norm(q)
+    T = (1 - t) * pose0[:3, 3] + t * pose1[:3, 3]
+    return torch.cat([q_to_R(q), T[:, None]], dim=1)
 
 
 def angle_to_rotation_matrix(a, axis: str):

@@ -6,7 +6,12 @@ eval, Laplace-CDF density and quadrature compositing with background
 blending. With an occupancy grid and ``compact_samples`` set (the default
 config), the fields are evaluated only on the first K samples inside the
 occupancy band and composited by the fused CUDA kernels
-(``fused_composite``). The adaptive ``volsdf_sampling`` path waits.
+(``fused_composite``). With ``volsdf_sampling`` the uniform samples are
+refined by the JAX package's fixed-iteration VolSDF error-bound
+up-sampling (``max_upsample_iter`` rounds of ``sample_intvs`` new depths
+from the error bound's inverse CDF, then ``final_sample_intvs`` depths
+from the opacity CDF, sorted together with the uniform ones). Under
+``dual_field`` the second geometry feature joins the decoder's input.
 
 ``ray_chunk`` splits large batches into chunks exactly as the JAX
 package does, so results stay identical; chunks are not rematerialized.
@@ -27,7 +32,9 @@ from . import fused_composite as fc
 @dataclasses.dataclass(frozen=True)
 class RendererConfig:
     sample_intvs: int = 128
+    final_sample_intvs: int = 64
     volsdf_sampling: bool = False
+    max_upsample_iter: int = 6
     bgcolor: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     # process rays in chunks of this size along the ray axis; None = one pass
     ray_chunk: Optional[int] = 2048
@@ -46,7 +53,9 @@ def config_from_opt(opt) -> RendererConfig:
     ren = opt.get("Renderer", {})
     return RendererConfig(
         sample_intvs=int(opt.SDF.VolSDF.sample_intvs),
+        final_sample_intvs=int(opt.SDF.VolSDF.final_sample_intvs),
         volsdf_sampling=bool(opt.SDF.VolSDF.volsdf_sampling),
+        max_upsample_iter=int(opt.SDF.VolSDF.max_upsample_iter),
         bgcolor=tuple(bg),
         ray_chunk=ren.get("ray_chunk", 2048),
         compact_samples=ren.get("compact_samples", None),
@@ -84,12 +93,86 @@ def sdf_to_sigma(sdf, alpha, beta):
     return alpha * torch.where(sdf >= 0, e, 1 - e)
 
 
+def _r_t(d_vals, sdf, alpha, beta):
+    """The Laplace density's optical depth before each interval [...,N-1]
+    and the intervals [...,N-1]."""
+    sigma = sdf_to_sigma(sdf, alpha, beta)
+    delta = d_vals[..., 1:] - d_vals[..., :-1]
+    zeros = torch.zeros_like(sdf[..., :1])
+    R_t = torch.cat([zeros, torch.cumsum(sigma[..., :-1] * delta, dim=-1)],
+                    dim=-1)[..., :-1]
+    return R_t, delta
+
+
+def error_bound(d_vals, sdf, alpha, beta):
+    """VolSDF's bound on the opacity approximation error per interval;
+    NaN and inf become the largest float, as ``jnp.nan_to_num`` maps
+    them."""
+    R_t, delta = _r_t(d_vals, sdf, alpha, beta)
+    sdf_abs = torch.abs(sdf)
+    d_star = torch.clamp(0.5 * (sdf_abs[..., :-1] + sdf_abs[..., 1:] - delta),
+                         min=0.0)
+    errors = alpha / (4 * beta) * delta ** 2 * torch.exp(-d_star / beta)
+    bounds = torch.exp(-R_t) * (torch.exp(torch.cumsum(errors, dim=-1)) - 1.0)
+    big = torch.finfo(bounds.dtype).max
+    return torch.nan_to_num(bounds, nan=big, posinf=big)
+
+
+def _search_left(a, v):
+    """searchsorted(side='left') of v [...,M] in the ascending last axis
+    of a [...,N]: the count of entries of a below each v."""
+    return torch.searchsorted(a.contiguous(), v.contiguous(), side="left")
+
+
+def sample_pdf(bins, weights, n_importance: int, eps: float = 1e-5):
+    """Deterministic inverse-CDF sampling of ``n_importance`` depths."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+    u = torch.linspace(0.0, 1.0, n_importance, dtype=cdf.dtype, device=cdf.device)
+    u = u.expand(*cdf.shape[:-1], n_importance)
+    inds = _search_left(cdf, u)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_g0 = torch.gather(cdf, -1, below)
+    cdf_g1 = torch.gather(cdf, -1, above)
+    nb = bins.shape[-1] - 1
+    bins_g0 = torch.gather(bins, -1, torch.clamp(below, max=nb))
+    bins_g1 = torch.gather(bins, -1, torch.clamp(above, max=nb))
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < eps, 1.0, denom)
+    t = (u - cdf_g0) / denom
+    return bins_g0 + t * (bins_g1 - bins_g0)
+
+
+def opacity_to_sample(d_vals, sdf, alpha, beta, n_final: int):
+    """``n_final`` depths from the inverse of the approximate opacity CDF."""
+    R_t, _ = _r_t(d_vals, sdf, alpha, beta)
+    opacity = 1 - torch.exp(-R_t)
+    opacity = torch.cat([torch.zeros_like(opacity[..., :1]), opacity], -1)
+    grid = torch.linspace(0, 1, n_final + 1, dtype=d_vals.dtype,
+                          device=d_vals.device)
+    unif = (0.5 * (grid[:-1] + grid[1:])).expand(*opacity.shape[:-1], n_final)
+    idx = _search_left(opacity, unif)
+    lo = torch.clamp(idx - 1, min=0)
+    hi = torch.clamp(idx, max=opacity.shape[-1] - 1)
+    nd = d_vals.shape[-1] - 1
+    d_lo = torch.gather(d_vals, -1, torch.clamp(lo, max=nd))
+    d_hi = torch.gather(d_vals, -1, torch.clamp(hi, max=nd))
+    c_lo = torch.gather(opacity, -1, lo)
+    c_hi = torch.gather(opacity, -1, hi)
+    t = (unif - c_lo) / (c_hi - c_lo + 1e-8)
+    return d_lo + t * (d_hi - d_lo)
+
+
 def volsdf_sampling(sdf_params, sdf_cfg: sdf_mod.SDFConfig, cfg: RendererConfig,
                     center, ray):
-    """Uniform depth samples between the ray–AABB hits: [B,HW,S]."""
-    if cfg.volsdf_sampling:
-        raise NotImplementedError(
-            "SDF.VolSDF.volsdf_sampling=True (adaptive sampling) is not ported yet")
+    """Depth samples [B,HW,S]: uniform between the ray–AABB hits, or with
+    ``cfg.volsdf_sampling`` the adaptive ones (S = final_sample_intvs +
+    sample_intvs, sorted). The SDF values that steer the adaptive
+    samples are detached; the depths stay differentiable w.r.t. alpha,
+    beta and the rays, as in the JAX package."""
     B, HW = center.shape[0], center.shape[1]
     dev, dt = center.device, center.dtype
     t_near, t_far, _ = aabb_mod.ray_aabb_intersect(
@@ -98,7 +181,31 @@ def volsdf_sampling(sdf_params, sdf_cfg: sdf_mod.SDFConfig, cfg: RendererConfig,
         torch.as_tensor(sdf_cfg.half_size, dtype=dt, device=dev))
     min_d = t_near.reshape(B, HW, 1)
     max_d = t_far.reshape(B, HW, 1)
-    return sample_depth(min_d, max_d, cfg.sample_intvs)[..., 0]
+    depth_coarse = sample_depth(min_d, max_d, cfg.sample_intvs)[..., 0]
+    if not cfg.volsdf_sampling:
+        return depth_coarse
+
+    def sdf_along(d):
+        pts = center[..., None, :] + ray[..., None, :] * d[..., None]
+        with torch.no_grad():
+            return sdf_mod.infer_sdf(sdf_params, sdf_cfg, pts)[..., 0]
+
+    alpha_g, beta_g = sdf_mod.forward_ab(sdf_params, sdf_cfg)
+    d_vals = depth_coarse
+    sdf = sdf_along(d_vals)
+    for _ in range(cfg.max_upsample_iter):
+        bounds = error_bound(d_vals, sdf, alpha_g, beta_g)
+        new_d = sample_pdf(0.5 * (d_vals[..., 1:] + d_vals[..., :-1]), bounds,
+                           cfg.sample_intvs + 2)[..., 1:-1]
+        new_sdf = sdf_along(new_d)
+        d_vals, order = torch.sort(torch.cat([d_vals, new_d], dim=-1), dim=-1,
+                                   stable=True)
+        sdf = torch.gather(torch.cat([sdf, new_sdf], dim=-1), -1, order)
+    fine = opacity_to_sample(d_vals, sdf, alpha_g, beta_g, cfg.final_sample_intvs)
+    # stable, as the JAX package's sort: tied depths keep their order, and
+    # with it the gradient each one carries
+    return torch.sort(torch.cat([fine, depth_coarse], dim=-1), dim=-1,
+                      stable=True).values
 
 
 def render(sdf_params, sdf_cfg: sdf_mod.SDFConfig,
@@ -152,7 +259,10 @@ def _render_impl(sdf_params, sdf_cfg: sdf_mod.SDFConfig,
     depth_all = volsdf_sampling(sdf_params, sdf_cfg, cfg, center, ray)
     sample_valid = None
     if occ_grid is not None and cfg.compact_samples is not None:
-        bin_w = depth_all[..., 1] - depth_all[..., 0]     # uniform bin width
+        # the uniform bin width; under volsdf_sampling the sorted depths
+        # are not uniform, and the JAX package takes the first gap all
+        # the same (kept for parity)
+        bin_w = depth_all[..., 1] - depth_all[..., 0]
         d, sample_valid = compact_by_occupancy(
             depth_all, center, ray, occ_grid, int(cfg.compact_samples))
         depth_samples = d[..., None]
@@ -165,7 +275,11 @@ def _render_impl(sdf_params, sdf_cfg: sdf_mod.SDFConfig,
 
     view = ray[..., None, :].expand(p3d.shape)
     ray_enc = radf.embed_view(rad_cfg, view)
-    all_enc = torch.cat([p3d, normals, ray_enc, feats[..., 1:]], dim=-1)
+    geo_enc = feats[..., 1:]
+    if rad_cfg.dual_field:
+        geo_enc = torch.cat(
+            [geo_enc, radf.geometry_feat(rad_params, rad_cfg, p3d)[..., 1:]], dim=-1)
+    all_enc = torch.cat([p3d, normals, ray_enc, geo_enc], dim=-1)
     rgbs = radf.infer_app(rad_params, rad_cfg, all_enc)
 
     bg = torch.as_tensor(cfg.bgcolor, dtype=rgbs.dtype, device=rgbs.device)

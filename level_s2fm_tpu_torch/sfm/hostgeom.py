@@ -4,8 +4,8 @@ Counterpart of ``estimate_essential`` and ``pnp_ransac`` in
 ``level_s2fm_tpu/sfm/hostgeom.py`` (their minigeom branches): 5-point
 RANSAC with cheirality, and P3P LO-RANSAC with LM refinement, from the
 port's own build of the native C++ library. There is no OpenCV fallback;
-a call raises if the library cannot be built. DLT triangulation (the
-``tri_trad`` ablation) waits with the ablations.
+a call raises if the library cannot be built. ``triangulate_dlt`` (the
+``tri_trad`` ablation) is the JAX package's numpy DLT, copied.
 """
 from __future__ import annotations
 
@@ -60,3 +60,18 @@ def pnp_ransac(p2d: np.ndarray, p3d: np.ndarray, K: np.ndarray,
     if ok:
         return PnPResult(True, R, t, inl)
     return PnPResult(False)
+
+
+def triangulate_dlt(kp0: np.ndarray, kp1: np.ndarray,
+                    P0: np.ndarray, P1: np.ndarray) -> np.ndarray:
+    """Batch DLT triangulation. kp0/kp1 [N,2] pixels, P0/P1 [3,4]
+    projection matrices (K @ [R|t]). Returns [N,3] world points."""
+    N = kp0.shape[0]
+    A = np.zeros((N, 4, 4))
+    A[:, 0] = kp0[:, 0, None] * P0[2] - P0[0]
+    A[:, 1] = kp0[:, 1, None] * P0[2] - P0[1]
+    A[:, 2] = kp1[:, 0, None] * P1[2] - P1[0]
+    A[:, 3] = kp1[:, 1, None] * P1[2] - P1[1]
+    _, _, Vt = np.linalg.svd(A)
+    X = Vt[:, -1]
+    return (X[:, :3] / (X[:, 3:4] + 1e-12)).astype(np.float32)

@@ -6,8 +6,10 @@ sphere of radius rad_init, the relative pose by essential-matrix RANSAC
 (minigeom), then ``InitPhase`` fits the fields for max_iter steps (with
 the occupancy grid rebuilt between segments), and the final traced
 surface points are filtered (3-sigma + SDF convergence) into the
-PointSet (the match images go to ``output_path/init_mch/``). The
-``tri_trad`` ablation waits.
+PointSet (the match images go to ``output_path/init_mch/``). Under the
+``tri_trad`` ablation the keypoints are DLT-triangulated from the two
+bootstrapped poses instead (cheirality + bounds mask) and the SDF is
+fitted to the points afterwards (``trad.fit_sdf_to_points``, 200 steps).
 """
 from __future__ import annotations
 
@@ -52,8 +54,6 @@ class Initializer:
     def __init__(self, opt, cfgs: PhaseCfgs, cameraset: entities.CameraSet,
                  pointset: entities.PointSet, var: dict,
                  cam_info_reloaded: Optional[dict] = None, device=None):
-        if opt.Ablate_config.get("tri_trad", False):
-            raise NotImplementedError("Ablate_config.tri_trad is not ported yet")
         self.opt = opt
         self.cfgs = cfgs
         self.cameraset = cameraset
@@ -154,6 +154,8 @@ class Initializer:
 
     def run(self, params, gen: torch.Generator, verbose: bool = True):
         """Optimize fields, triangulate, seed the point set. Returns params."""
+        if self.opt.Ablate_config.get("tri_trad", False):
+            return self.run_trad(params, gen, verbose=verbose)
         state = self.phase.init_state(params)
         state["opt"] = optstate.adopt("init", state["opt"])
         if self.cfgs.ren.compact_samples is not None:
@@ -173,6 +175,38 @@ class Initializer:
         self._triangulate_host(pts_surface.cpu().numpy(), finish.cpu().numpy())
         if verbose:
             self._print_relpose_oracle()
+        self.pose_errors = self.cameraset.eval_poses(verbose=verbose)
+        return params
+
+    def run_trad(self, params, gen: torch.Generator, verbose: bool = True):
+        """``tri_trad``: DLT triangulation of the init pair's inliers, the
+        points in front of both cameras and inside the bounds seeded, then
+        the SDF fitted to them. Returns params."""
+        from .trad import fit_sdf_to_points
+        cam0, cam1 = self.cameraset.cameras[0], self.cameraset.cameras[1]
+        pose0, pose1 = cam0.pose(), cam1.pose()
+        X = hostgeom.triangulate_dlt(cam0.kypts[self.kp_idx0],
+                                     cam1.kypts[self.kp_idx1],
+                                     cam0.intr @ pose0, cam1.intr @ pose1)
+        Xc0 = X @ pose0[:, :3].T + pose0[:, 3]
+        Xc1 = X @ pose1[:, :3].T + pose1[:, 3]
+        bmax = np.asarray(self.opt.data.bound_max, np.float32)
+        bmin = np.asarray(self.opt.data.bound_min, np.float32)
+        mask = ((Xc0[:, 2] > 0) & (Xc1[:, 2] > 0)
+                & np.all(X < bmax, -1) & np.all(X > bmin, -1))
+        self.tri_ratio = (int(mask.sum()), int(len(mask)))
+        print(f"Triangulation ratio {mask.sum()}/{len(mask)}")
+        kp_idx = np.stack([self.kp_idx0, self.kp_idx1], 0)[:, mask]
+        tracks = [[(0, int(kp_idx[0, j])), (1, int(kp_idx[1, j]))]
+                  for j in range(kp_idx.shape[1])]
+        idx = self.pointset.add_points(X[mask], tracks)
+        cam0.idx2d_to_3d[kp_idx[0]] = idx
+        cam1.idx2d_to_3d[kp_idx[1]] = idx
+        n = self._n_kp
+        c = self.batch["center_k"][0, :n].cpu().numpy()[mask]
+        r = self.batch["ray_k"][0, :n].cpu().numpy()[mask]
+        params = fit_sdf_to_points(self.opt, self.cfgs, params, X[mask], c, r,
+                                   gen, max_iter=200)
         self.pose_errors = self.cameraset.eval_poses(verbose=verbose)
         return params
 

@@ -8,8 +8,7 @@ Counterpart of ``level_s2fm_tpu/sfm/phases.py`` (``render_core``,
 ``RefinePhase``). A phase is a Python loop over one step that updates
 the parameters in place; the JAX package's scan chunking
 (``chunked_run``, ``LS2FM_SCAN_CHUNK``) and phase cache worked around TPU
-dispatch and compile limits and are not ported. ``BAPhase``'s
-``rad_init`` mode has no caller and waits.
+dispatch and compile limits and are not ported.
 
 Randomness comes from a CPU ``torch.Generator`` passed by the caller.
 Every draw can also be given, so tests can hand both packages the same
@@ -438,7 +437,8 @@ class BAPhase:
     Modes: ``sfm`` is pure reprojection (no rendering; the radiance field
     is frozen, which is exact: its gradient is zero); ``sfm_refine`` adds
     the rendering losses, with pose gradients through the rendered rays
-    when a single camera is optimized.
+    when a single camera is optimized; ``rad_init`` trains the fields on
+    the same losses with the poses frozen.
 
     batch keys:
       pose_idx [P], kp [P,2], valid [P], intr [3,3]
@@ -450,15 +450,17 @@ class BAPhase:
                  single_cam: bool = False,
                  lr_sdf=1e-4, lr_sdf_end=5e-5, lr_color=1e-3,
                  lr_pose_r=5e-3, lr_pose_t=1e-2, max_iter=1000):
-        if mode not in ("sfm", "sfm_refine"):
-            raise NotImplementedError(f"BAPhase mode {mode!r} is not ported")
+        if mode not in ("sfm", "sfm_refine", "rad_init"):
+            raise ValueError(f"unknown BAPhase mode {mode!r}")
         self.cfgs = cfgs
         self.weights = dict(weights)
         self.mode = mode
         self.single_cam = single_cam
         self.max_iter = max_iter
         self.gamma = optim_mod.decay_gamma(lr_sdf, lr_sdf_end, max_iter)
-        self.label_of = {"sdf": "sdf", "se3_r": "pose_r", "se3_t": "pose_t",
+        pose = optim_mod.FROZEN if mode == "rad_init" else None
+        self.label_of = {"sdf": "sdf", "se3_r": pose or "pose_r",
+                         "se3_t": pose or "pose_t",
                          "rad": optim_mod.FROZEN if mode == "sfm" else "color"}
         self.lrs = {"sdf": lr_sdf, "color": lr_color, "pose_r": lr_pose_r,
                     "pose_t": lr_pose_t}

@@ -15,8 +15,10 @@ restored checkpoint rebuilds the scene (``_reload_scene``) and the run
 goes on from there. Each view's row goes to ``metrics.jsonl`` with the
 JAX package's keys; ``freq.vis`` dumps per-view artifacts, and the end of
 the run writes the point cloud, cameras and viewer page and, when the
-scene has GT depth, the depth evaluation. ``ba_trad`` waits with the
-ablations.
+scene has GT depth, the depth evaluation. Under the ``ba_trad``
+ablation a view's BA is one local and one global ``TradBundler`` (free
+points, reprojection only) and nothing more; unlike the JAX package,
+which returns before its metrics row there, the view's row is written.
 """
 from __future__ import annotations
 
@@ -258,8 +260,6 @@ class LevelSfM:
     def register_view(self, new_id: int, verbose=True) -> bool:
         """PnP + geoinit + BA cycles (+ refine in full mode) for one view."""
         opt = self.opt
-        if opt.Ablate_config.get("ba_trad", False):
-            raise NotImplementedError("Ablate_config.ba_trad is not ported yet")
         row: Dict = {"view": new_id, "stage_s": {}}
         timers = row["stage_s"]
 
@@ -301,6 +301,9 @@ class LevelSfM:
                 self.params, self.next_key(), verbose))
             self._probe(stage, b)
             return reproj
+
+        if opt.Ablate_config.get("ba_trad", False):
+            return self._trad_bundle(row, new_id, src_cam_id, timed, verbose)
 
         full = opt.get("sfm_mode", "full") == "full"
         if full:
@@ -350,6 +353,26 @@ class LevelSfM:
                 self.params, self.next_key(), verbose))
             self._finite_params_or_revert("refine", params_pre)
             self._probe("refine", r)
+        return self._log_view(row, reproj)
+
+    def _trad_bundle(self, row, new_id, src_cam_id, timed, verbose) -> bool:
+        """``ba_trad``: one local (the new view and its sources) and one
+        global ``TradBundler``, with the pose errors after each."""
+        from .trad import TradBundler
+        reproj = None
+        for stage, pick in (("local_ba", [new_id] + src_cam_id),
+                            ("global_ba", None)):
+            b = TradBundler(self.opt, self.cfgs, self.camera_set, self.point_set,
+                            cam_pick_ids=pick, device=self.device)
+            self.params, reproj = timed(stage, lambda: b.run(
+                self.params, self.next_key(), verbose))
+            self._probe(stage, b)
+            self.camera_set.eval_poses(verbose=verbose)
+        return self._log_view(row, reproj)
+
+    def _log_view(self, row, reproj) -> bool:
+        """Complete a registered view's row with the pose errors, keep it
+        in ``view_log`` and write it to the metrics."""
         r_deg, t_err, ate = self.camera_set.eval_poses(verbose=False)
         row.update(n_cams=len(self.camera_set), n_points=len(self.point_set),
                    reproj_px=reproj, rot_err_deg=r_deg, t_err=t_err, ate=ate)

@@ -7,8 +7,9 @@ SDF value and solves the absolute pose (minigeom P3P RANSAC + LM), and
 new points by the tracing-distance mean + std threshold.
 ``score_candidates`` scores NBV candidates when ``nbv_mode`` is not
 ``colmap``. A registered view's PnP inliers are drawn into
-``output_path/pnp/``. The ``tri_trad`` ablation (DLT triangulation)
-waits with the ablations.
+``output_path/pnp/``. Under the ``tri_trad`` ablation ``geo_init``
+DLT-triangulates the new view's untracked matches with each source view
+instead (``geo_init_trad``).
 """
 from __future__ import annotations
 
@@ -298,7 +299,8 @@ class Registration:
         rejection gates rmax / 2 rmax / 4 rmax."""
         opt = self.opt
         if opt.Ablate_config.get("tri_trad", False):
-            raise NotImplementedError("Ablate_config.tri_trad is not ported yet")
+            return self.geo_init_trad(params, camera_new, pointset, gen,
+                                      verbose=verbose)
         if reproj_max is None:
             reproj_max = float(opt.optim.geoinit.get("reproj_max", 15.0))
         segs, host = self.geo_init_batch(camera_new, pointset, verbose)
@@ -326,6 +328,62 @@ class Registration:
         fin = phase.final(params, batch, gen)
         self._accept_points({k: v.cpu().numpy() for k, v in fin.items()},
                             segs, camera_new, pointset, verbose)
+        return params
+
+    def geo_init_trad(self, params, camera_new: entities.Camera,
+                      pointset: entities.PointSet, gen: torch.Generator,
+                      verbose=True, reproj_max: float = None):
+        """``tri_trad``: DLT triangulation of the new view's untracked
+        matches with each source view; a point is kept when it reprojects
+        within ``optim.geoinit.reproj_max_trad`` (default 8 px) in both
+        views and lies in front of both. Unless ``ba_trad`` is on, the SDF
+        is then fitted to the new points (100 steps). Returns params."""
+        from .trad import fit_sdf_to_points
+        if reproj_max is None:
+            reproj_max = float(self.opt.optim.geoinit.get("reproj_max_trad", 8.0))
+        new_pos = self.cameraset.index_of(camera_new.id)
+        pose_n, K_n = camera_new.pose(), camera_new.intr
+        all_new_pts, all_c, all_r = [], [], []
+        self.tri_ratio = [0, 0]
+        for src_id in self.src_cam_id:
+            cam_i = self.cameraset(src_id)
+            kn, ko = camera_new.matched_kypt_ids(src_id)
+            is_new = camera_new.idx2d_to_3d[kn] == -1
+            if is_new.sum() == 0:
+                continue
+            kn, ko = kn[is_new], ko[is_new]
+            kp_n, kp_s = camera_new.kypts[kn], cam_i.kypts[ko]
+            X = hostgeom.triangulate_dlt(kp_n, kp_s, K_n @ pose_n,
+                                         cam_i.intr @ cam_i.pose())
+            uv_n, z_n = T.project_points(_t(X)[None], _t(pose_n)[None],
+                                         _t(K_n)[None])
+            uv_s, z_s = T.project_points(_t(X)[None], _t(cam_i.pose())[None],
+                                         _t(cam_i.intr)[None])
+            re_n = np.linalg.norm(uv_n[0].numpy() - kp_n, axis=-1)
+            re_s = np.linalg.norm(uv_s[0].numpy() - kp_s, axis=-1)
+            ok = ((re_n < reproj_max) & (re_s < reproj_max)
+                  & (z_n[0, :, 0].numpy() > 0) & (z_s[0, :, 0].numpy() > 0))
+            self.tri_ratio[0] += int(ok.sum())
+            self.tri_ratio[1] += len(ok)
+            if verbose:
+                print(f"the new triangulation ratio:{ok.sum()}/{len(ok)}")
+            if ok.sum() == 0:
+                continue
+            tracks = [[(new_pos, int(a)), (self.cameraset.index_of(src_id), int(b))]
+                      for a, b in zip(kn[ok], ko[ok])]
+            idx = pointset.add_points(X[ok], tracks)
+            camera_new.idx2d_to_3d[kn[ok]] = idx
+            cam_i.idx2d_to_3d[ko[ok]] = idx
+            all_new_pts.append(X[ok])
+            c, r = T.get_center_and_ray(_t(pose_n)[None], _t(K_n),
+                                        _t(camera_new.kypts[kn[ok]]))
+            all_c.append(c[0].numpy())
+            all_r.append(r[0].numpy())
+        if all_new_pts and not self.opt.Ablate_config.get("ba_trad", False):
+            params = fit_sdf_to_points(self.opt, self.cfgs, params,
+                                       np.concatenate(all_new_pts),
+                                       np.concatenate(all_c),
+                                       np.concatenate(all_r), gen, max_iter=100)
         return params
 
     def _accept_points(self, fin, segs, camera_new, pointset, verbose):
