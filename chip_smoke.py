@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--determinism]
 
-Imports nothing of JAX and nothing of the JAX package. Phases (any
+``--determinism`` adds two measurements to phases init, register and
+prepared (see below); the smoke itself takes no arguments. Imports nothing of JAX and nothing of the JAX package. Phases (any
 failure raises and exits non-zero):
 
 1. build — the CUDA kernels (``level_s2fm_tpu_torch/csrc/*.cu``, one nvcc
@@ -34,6 +35,9 @@ failure raises and exits non-zero):
    128 samples compacted to 32, occupancy 64^3, 20 march steps, geoinit
    max_rays 2048) on 128x128 images, with the step count cut to
    ``INIT_STEPS``. Losses must be finite and the rgb loss must fall.
+   With ``--determinism`` it also prints the steady ms per step with
+   and without ``torch.use_deterministic_algorithms``, from the same
+   parameters.
 6. register — the second main path: the same model goes on to register
    views 3 and 4 (``sfm_mode: full``: PnP, geoinit, one single-camera
    sfm_refine BA, up to 5 local and 5 global BA cycles, refine). Depth
@@ -42,8 +46,11 @@ failure raises and exits non-zero):
    500). Every view must register and every loss stay finite. Per view
    it prints PnP inliers, the triangulation ratio, the pose errors and
    the wall s per stage; then, on copies of the final state, the steady
-   ms per step and the device-busy share of each phase; then K1/K2 are
-   held to their plain versions at every shape the run launched.
+   ms per step and the device-busy share of each phase (with
+   ``--determinism``, GeoInitPhase, BAPhase ``sfm_refine`` and
+   RefinePhase also with and without deterministic algorithms, from the
+   same parameters); then K1/K2 are held to their plain versions at
+   every shape the run launched.
 7. bands — the 3-view ``--sfm_mode=fast`` run at
    ``configs/synthetic.yaml`` as it stands, under
    ``torch.use_deterministic_algorithms`` so that its verdict repeats
@@ -51,8 +58,20 @@ failure raises and exits non-zero):
    within 2x of the known-good values (reproj 0.315 px, rot 6.0 deg, t
    0.018), and the relative rotations within the E2E oracles (views 0-1
    < 5 deg, 0-2 < 8 deg).
-8. prepared — the third main path, through the port's CLI entry
-   (``train.main``) on a prepared scene: ``configs/synthhard_r5.yaml`` as
+8. scenes — the steps before training, with the port alone (no OpenCV,
+   no imageio): ``render_hard_view`` re-renders views 0 and 17 of
+   data/synthhard/scan1 and ``render_multiroom_view`` the depths of views
+   0 and 12 of data/scannet/multiroom0; written as the dataset writer
+   writes them, they must equal the committed PNGs within one least
+   significant bit (differing pixels printed). The greedy pose graph
+   over each committed ``two_view.npy`` (synthhard, synthprep, multiroom)
+   must be its ``pose_graph.npy``; a COLMAP database and a .txt and a
+   .bin model are written and read back, and the COLMAP backend on them
+   with a mapper log must give the log's order. Prints the seconds of
+   each render.
+9. prepared — the third main path, through the port's CLI entry
+   (``train.main``) on a prepared scene, under
+   ``torch.use_deterministic_algorithms``: ``configs/synthhard_r5.yaml`` as
    it stands (data/synthhard/scan1 through the port's loaders: 200x200,
    SIFT matches, the widths of ``configs/levels2fm.yaml``, init 400,
    geoinit 60 x 5, BA 400) in ``--sfm_mode=fast``, as the JAX package's
@@ -61,7 +80,9 @@ failure raises and exits non-zero):
    (``results/synthhard_r5_metrics.jsonl``): the same view, reproj < 1 px
    and within 2x, t_err and ate within 2x, the rotation within 2x from 5
    cameras up (the Procrustes fit of 3-4 near-collinear centres is
-   ill-conditioned). Then a fresh engine resumes from ``model.ckpt``,
+   ill-conditioned). With ``--determinism`` a second engine then runs
+   the init and the first view again, and its row must repeat the first
+   one bit for bit. Then a fresh engine resumes from ``model.ckpt``,
    must adopt the saved optimizer moments and registers the sixth view
    under the same bars; then ``--get_result --refine_again`` refines
    every camera (200 steps, K1/K2) and exports the results, each file
@@ -69,7 +90,7 @@ failure raises and exits non-zero):
    grid spacing, ``render_cam0.png`` finite, its PSNR printed). K1/K2 are
    held at every shape the phase launched. Prints the per-view stage
    times, the checkpoint save / restore ms and size, and the export ms.
-9. options — phase init's configuration with the SDF / renderer options
+10. options — phase init's configuration with the SDF / renderer options
    switched on (``OPTION_SWITCHES``: the dual radiance field, the
    adaptive VolSDF sampler with ``final_sample_intvs`` 64, the
    ``paired_dense`` key, and the exact ``reeval_compact`` /
@@ -78,7 +99,7 @@ failure raises and exits non-zero):
    step and the device-busy share beside phase init's, and one 8192-ray
    march with and without ``march_compact`` (ms each; the tracks must
    agree to 1e-5).
-10. ablations — (a) the 3-view ``configs/synthetic.yaml`` run under
+11. ablations — (a) the 3-view ``configs/synthetic.yaml`` run under
    ``--sfm_mode=fast --Ablate_config.tri_trad --Ablate_config.ba_trad``
    through ``train.main``: every view registers, > 30 points with
    median | |X| - 0.5 | < 0.1, and the final reproj / rotation /
@@ -620,10 +641,12 @@ def _init_var(var):
 
 # --------------------------------------------------------------------------- init
 
-def phase_init():
+def phase_init(determinism=False):
     """The first main path: two-view init at full width. Returns (model,
     launch counts). Profiling runs on a copy of the parameters, so the
-    model goes on to the register phase as the init left it."""
+    model goes on to the register phase as the init left it. With
+    ``determinism`` the steady step is also timed with and without
+    deterministic algorithms."""
     import numpy as np
     import torch
     from level_s2fm_tpu_torch.config import build_options
@@ -690,15 +713,20 @@ def phase_init():
         "triangulated": [n_tri, n_kp], "rot_error_deg": rot_err,
         "t_error_deg": t_err,
     }
+    if determinism:
+        summary["determinism"] = _determinism_cost(
+            init.phase, lambda: init.phase.init_state(_tree_to(model.params, "cuda")),
+            batch, seed=1)
     log("[init] " + json.dumps(summary))
     return model, launches, summary
 
 
 # --------------------------------------------------------------------------- register
 
-def phase_register(model):
-    """The second main path: the init phase's model registers views 3 and
-    4 at full width. Returns (launch counts, launch shapes)."""
+def phase_register(model, determinism=False):
+    """The second main path: the init phase's model registers views 3 to
+    ``REGISTER_VIEWS`` at full width. Returns (launch counts, launch
+    shapes)."""
     import numpy as np
     import torch
     from level_s2fm_tpu_torch.rendering import fused_composite as fc
@@ -755,14 +783,16 @@ def phase_register(model):
         "launch_shapes": {k: {f"{R}x{K}": n for (R, K), n in v.items()}
                           for k, v in shapes.items()},
         "per_stage": per_stage}))
-    _profile_register(model, probes)
+    _profile_register(model, probes, determinism)
     return launches, shapes
 
 
-def _profile_register(model, probes):
+def _profile_register(model, probes, determinism):
     """Steady ms per step (synchronised) and device-busy share of
     GeoInitPhase, BAPhase('sfm'), BAPhase('sfm_refine') and RefinePhase,
-    each on a copy of the final parameters with its last call's batch."""
+    each on a copy of the final parameters with its last call's batch;
+    with ``determinism`` the render phases also with and without
+    deterministic algorithms."""
     import torch
     from level_s2fm_tpu_torch.sfm import bundle
     out = {}
@@ -772,9 +802,13 @@ def _profile_register(model, probes):
         obj = probes[stage]
         batch = dict(obj.batch)
         if stage in ("geo_init", "refine"):
-            state = obj.phase.init_state(_tree_to(model.params, dev))
+            def make_state(obj=obj):
+                return obj.phase.init_state(_tree_to(model.params, dev))
         else:
-            state = obj.phase.init_state(_ba_params(model, obj, dev), obj.xyzs0.clone())
+            def make_state(obj=obj):
+                return obj.phase.init_state(_ba_params(model, obj, dev),
+                                            obj.xyzs0.clone())
+        state = make_state()
         if stage in ("sfm_refine", "refine"):
             batch["occ"] = bundle.maybe_build_occ(model.opt, model.cfgs, state["params"])
         gen = torch.Generator().manual_seed(3)
@@ -794,7 +828,11 @@ def _profile_register(model, probes):
                      "top_op_device_ms_per_step": prof["top_op_device_ms_per_step"]}
         if "valid" in obj.batch:
             out[name]["P"] = int(obj.batch["valid"].shape[0])
-        del state, batch
+        del state
+        if determinism and stage != "local_ba":
+            out[name]["determinism"] = _determinism_cost(obj.phase, make_state,
+                                                         batch, seed=3)
+        del batch
         torch.cuda.empty_cache()
     log("[register] steady steps " + json.dumps(out))
 
@@ -853,6 +891,153 @@ def phase_bands():
     assert rel["0-1"] < 5.0 and rel["0-2"] < 8.0, rel
 
 
+# --------------------------------------------------------------------------- scenes
+
+#: the committed scenes the generators must reproduce, with the views
+#: rendered: data/synthhard/scan1 is make_hard_scene_images(32, 400, 400)
+#: (configs/synthhard.yaml), data/scannet/multiroom0 is
+#: make_multiroom_scene(24, 384, 384)
+HARD_SCENE = ("synthhard/scan1", 32, 400, (0, 17))
+MULTIROOM_SCENE = ("scannet/multiroom0", 24, 384, (0, 12))
+#: the committed preparations whose pose graphs the greedy order must give
+PREPARED_SCENES = ("synthhard/scan1", "synthprep/scan1", "scannet/multiroom0")
+
+
+def _lsb_diff(got, want, what):
+    """Count the values of two uint arrays that differ; fail on any that
+    differs by more than one least significant bit."""
+    import numpy as np
+    assert got.shape == want.shape and got.dtype == want.dtype, (
+        what, got.shape, want.shape, got.dtype, want.dtype)
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    if d.ndim == 3:
+        d = d.max(-1)
+    rec = {"differing_pixels": int((d > 0).sum()), "max_lsb": int(d.max())}
+    assert rec["max_lsb"] <= 1, (what, rec)
+    return rec
+
+
+def phase_scenes():
+    """The generate and prepare steps a user takes before training, with
+    the port alone (the GPU machine has no OpenCV or imageio): the port's
+    generators re-render views of the committed hard and multiroom scenes
+    and must reproduce their files; the greedy pose graph over each
+    committed ``two_view.npy`` must be its ``pose_graph.npy``; a COLMAP
+    database and model are written and read back, and the COLMAP backend
+    runs on them with a mapper log."""
+    import numpy as np
+    from level_s2fm_tpu_torch.data import synthetic
+    from level_s2fm_tpu_torch.data.base import sorted_images
+    from level_s2fm_tpu_torch.preparation import colmap_db
+    from level_s2fm_tpu_torch.preparation import main as prep
+    from level_s2fm_tpu_torch.utils import colmap_model, png
+
+    data = os.path.join(REPO, "data")
+    out = {"render_s": {}, "hard": {}, "multiroom": {}}
+    scene, n, size, views = HARD_SCENE
+    K, poses = synthetic.hard_scene_cameras(n_views=n, H=size, W=size)
+    for v in views:
+        t0 = time.perf_counter()
+        img = synthetic.render_hard_view(poses[v], K, size, size)
+        out["render_s"][f"hard {v}"] = time.perf_counter() - t0
+        got = (np.clip(img, 0, 1) * 255).astype(np.uint8)   # as the writer stores it
+        want = png.read_png(os.path.join(data, scene, "images", f"{v:06d}.png"))
+        out["hard"][v] = _lsb_diff(got, want, f"{scene} image {v}")
+    scene, n, size, views = MULTIROOM_SCENE
+    K, poses = synthetic.multiroom_cameras(n_views=n, H=size, W=size)
+    for v in views:
+        t0 = time.perf_counter()
+        _, depth = synthetic.render_multiroom_view(poses[v], K, size, size)
+        out["render_s"][f"multiroom {v}"] = time.perf_counter() - t0
+        got = np.clip(depth * 1000.0, 0, 65535).astype(np.uint16)
+        want = png.read_png(os.path.join(data, scene, "depth", f"{v:06d}.png"))
+        out["multiroom"][v] = _lsb_diff(got, want, f"{scene} depth {v}")
+    out["multiroom_color"] = ("not compared: the committed color frames are "
+                              "JPEGs, which need Pillow or imageio; "
+                              "tests/test_torch_port_scenes.py holds the "
+                              "images bitwise")
+
+    out["pose_graphs"] = {}
+    for scene in PREPARED_SCENES:
+        d = os.path.join(data, scene)
+        n = len(sorted_images(prep.find_images_dir(d)))
+        counts = np.zeros((n, n), np.int64)
+        tv = np.load(os.path.join(d, "two_view.npy"), allow_pickle=True)[0]
+        for (i, j), c in tv["counts"].items():
+            counts[i, j] = counts[j, i] = c
+        got = prep.greedy_pose_graph(counts)
+        want = np.load(os.path.join(d, "pose_graph.npy"), allow_pickle=True).tolist()
+        assert got == want, (scene, got, want)
+        out["pose_graphs"][scene] = {"views": n, "equal": True}
+
+    scene_dir = _out_dir("scenes")
+    os.makedirs(os.path.join(scene_dir, "images"))
+    ws = os.path.join(scene_dir, "colmap_ws")
+    os.makedirs(os.path.join(ws, "sparse"))
+    rng = np.random.default_rng(0)
+    db = colmap_db.ColmapDatabase(os.path.join(ws, "database.db"))
+    db.create_tables()
+    cam = db.add_camera("PINHOLE", 64, 64, [57.6, 57.6, 32.0, 32.0])
+    kps = {}
+    for k in range(3):
+        iid = db.add_image(f"{k:06d}.png", cam)
+        kps[iid] = rng.uniform(0, 64, (40, 2)).astype(np.float32)
+        db.add_keypoints(iid, kps[iid])
+    matches = {}
+    for i, j in ((1, 2), (3, 1), (2, 3)):
+        m = np.stack([rng.permutation(40)[:25], rng.permutation(40)[:25]], 1)
+        matches[(i, j)] = m
+        db.add_matches(i, j, m)
+        db.add_two_view_geometry(i, j, m[::2])
+    db.commit()
+    assert db.image_names() == {1: "000000.png", 2: "000001.png", 3: "000002.png"}
+    for iid, kp in db.keypoints().items():
+        assert np.array_equal(kp, kps[iid]), iid
+    back = db.matches()
+    for (i, j), m in matches.items():
+        key, m = ((i, j), m) if i < j else ((j, i), m[:, ::-1])
+        assert np.array_equal(back[key], m), key
+    db.close()
+    cams = {1: colmap_model.ColmapCamera(1, "PINHOLE", 64, 64,
+                                         np.asarray([57.6, 57.6, 32.0, 32.0]))}
+    images = {}
+    for iid in (1, 3):     # image 2 left out of the model
+        q = rng.normal(size=4)
+        images[iid] = colmap_model.ColmapImage(
+            iid, q / np.linalg.norm(q), rng.normal(size=3), 1, f"{iid - 1:06d}.png",
+            rng.uniform(0, 64, (5, 2)), np.arange(5))
+    pts = {p: colmap_model.ColmapPoint3D(p, rng.normal(size=3),
+                                         np.asarray([10, 20, 30], np.uint8), 0.5,
+                                         np.asarray([1, 3]), np.asarray([p, p]))
+           for p in range(5)}
+    model_dir = os.path.join(ws, "sparse", "0")
+    for ext in (".txt", ".bin"):
+        colmap_model.write_model(cams, images, pts, model_dir, ext=ext)
+        rc, ri, rp = colmap_model.read_model(model_dir)
+        assert sorted(ri) == [1, 3] and sorted(rp) == list(range(5)), ext
+        for iid, im in images.items():
+            assert np.array_equal(ri[iid].qvec, im.qvec) and ri[iid].name == im.name
+            assert np.array_equal(ri[iid].xys, im.xys), (ext, iid)
+        assert np.array_equal(rc[1].K(), [[57.6, 0, 32], [0, 57.6, 32], [0, 0, 1]])
+        if ext == ".txt":       # the .bin model stays for the backend
+            for name in ("cameras", "images", "points3D"):
+                os.remove(os.path.join(model_dir, name + ext))
+    with open(os.path.join(scene_dir, "mapper.log"), "w") as f:
+        f.write("Initializing with image pair #3 and #2\n"
+                "Registering image #1 (3)\n")
+    kypts, pair_matches, pose_graph = prep.run_colmap_backend(scene_dir)
+    # the log's order (3, 2, 1) less image 2, which left the model,
+    # then the views the model lacks: image ids 3, 1 are views 2, 0
+    assert pose_graph == [2, 0, 1], pose_graph
+    assert sorted(pair_matches) == [(0, 1), (0, 2), (1, 2)]
+    for m, mask in pair_matches.values():
+        assert mask.sum() == 13 and len(m) == 25, (len(m), mask.sum())
+    out["colmap"] = {"pose_graph": pose_graph,
+                     "inliers": {f"{i}-{j}": int(mask.sum())
+                                 for (i, j), (_, mask) in pair_matches.items()}}
+    log("[scenes] " + json.dumps(out))
+
+
 # --------------------------------------------------------------------------- prepared
 
 def _check_prepared_row(row, ref):
@@ -875,12 +1060,13 @@ def _check_prepared_row(row, ref):
         assert row["rot_err_deg"] <= f * ref["rot_err_deg"], got
 
 
-def phase_prepared():
+def phase_prepared(determinism=False):
     """The third main path, through the port's CLI entry on the prepared
-    scene: five views with a checkpoint after each, a fresh engine that
-    resumes and registers the sixth, then ``--get_result`` with a refine
-    over every camera and the export. Returns (launch counts, launch
-    shapes)."""
+    scene, under deterministic algorithms: five views with a checkpoint
+    after each, with ``determinism`` the init and first view once more in
+    a fresh engine (its row must repeat), a fresh engine that resumes and
+    registers the sixth, then ``--get_result`` with a refine over every
+    camera and the export. Returns (launch counts, launch shapes)."""
     import numpy as np
     import torch
     from level_s2fm_tpu_torch import train
@@ -903,7 +1089,13 @@ def phase_prepared():
     def run(name, argv):
         fc.reset_launches()
         t0 = time.perf_counter()
-        m = train.main(argv)
+        # the rows judge parity against one committed JAX run: the hash
+        # grid's index_add_ backward sums in a fixed order, as in bands
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            m = train.main(argv)
+        finally:
+            torch.use_deterministic_algorithms(False)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
         for k in launches:
@@ -916,7 +1108,7 @@ def phase_prepared():
                           for k, v in fc.SHAPES.items()}))
         return m
 
-    # 1. five views, a checkpoint after each
+    # 1. the first views, a checkpoint after each
     m = run("views", args + [f"--max_views={PREPARED_VIEWS}"])
     assert len(m.camera_set) == PREPARED_VIEWS and not m.skipped_views, (
         m.camera_set.cam_ids, m.skipped_views)
@@ -937,6 +1129,24 @@ def phase_prepared():
     ckpt_mb = os.path.getsize(ckpt) / 2 ** 20
     del m
     torch.cuda.empty_cache()
+
+    if determinism:
+        # 1b. the init and the first view again, in a fresh engine of the
+        # same call: under deterministic algorithms the row must repeat
+        m = run("repeat", PREPARED_ARGS + [
+            "--output_path=" + _out_dir("prepared_repeat"), "--max_views=3"])
+
+        def as_text(row):
+            return {k: json.dumps(v, default=lambda o: np.asarray(o).tolist())
+                    for k, v in row.items() if k != "stage_s"}
+        first, second = as_text(rows[0]), as_text(m.view_log[0])
+        differing = {k: [first[k], second.get(k)] for k in first
+                     if first[k] != second.get(k)}
+        log("[prepared] first-view row repeated within the call: " + json.dumps(
+            {"repeats": not differing, "differing": differing}))
+        assert not differing, differing
+        del m
+        torch.cuda.empty_cache()
 
     # 2. a fresh engine resumes from model.ckpt and registers the next view;
     # the first phase of the saved label adopts the saved moments
@@ -1237,6 +1447,35 @@ def _layer_split(model, state, batch, n=5):
     return out
 
 
+def _determinism_cost(phase, make_state, batch, seed, n=10):
+    """Steady ms per step of ``phase`` without and with
+    ``torch.use_deterministic_algorithms``, each from a fresh state of the
+    same parameters (``make_state()``): 2 warm-up steps, then ``n`` timed
+    (synchronised)."""
+    import torch
+    out = {}
+    for det in (False, True):
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        try:
+            state = make_state()
+            gen = torch.Generator().manual_seed(seed)
+            for _ in range(2):
+                phase.step(state, batch, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                phase.step(state, batch, gen)
+            torch.cuda.synchronize()
+            out["ms_deterministic" if det else "ms"] = (
+                (time.perf_counter() - t0) / n * 1e3)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        del state
+        torch.cuda.empty_cache()
+    out["ratio"] = out["ms_deterministic"] / out["ms"]
+    return out
+
+
 def _profile_steps(phase, state, batch, gen, n=3):
     """Device busy time and the top ops by device time over ``n`` steady
     steps (torch.profiler / CUPTI). Busy time is the union of the
@@ -1280,8 +1519,15 @@ def _profile_steps(phase, state, batch, gen, n=3):
 
 # --------------------------------------------------------------------------- main
 
-def main():
+def main(argv=None):
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
+    ap.add_argument("--determinism", action="store_true",
+                    help="also time the render phases with and without "
+                         "deterministic algorithms and check that phase "
+                         "prepared's first-view row repeats")
+    det = ap.parse_args(argv).determinism
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -1303,9 +1549,9 @@ def main():
     phase_adapter()
     phase_reference()
     log(f"[time] {time.time() - t_start:.1f} s")
-    model, launches, init_summary = phase_init()
+    model, launches, init_summary = phase_init(det)
     log(f"[time] {time.time() - t_start:.1f} s")
-    reg_launches, reg_shapes = phase_register(model)
+    reg_launches, reg_shapes = phase_register(model, det)
     del model
     torch.cuda.empty_cache()
     log(f"[time] {time.time() - t_start:.1f} s")
@@ -1318,7 +1564,9 @@ def main():
         + json.dumps(reg_launches))
     phase_bands()
     log(f"[time] {time.time() - t_start:.1f} s")
-    prep_launches, prep_shapes = phase_prepared()
+    phase_scenes()
+    log(f"[time] {time.time() - t_start:.1f} s")
+    prep_launches, prep_shapes = phase_prepared(det)
     shapes = sorted(set(prep_shapes["fwd"]) | set(prep_shapes["bwd"]))
     err = hold_composite(shapes, torch.device("cuda"), tag="prepared kernels")
     for rec, kind in zip(recs, ("fwd", "bwd")):

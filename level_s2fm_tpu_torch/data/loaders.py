@@ -270,7 +270,8 @@ def load_prepared_scene(opt) -> Dict:
             "preparation keypoints were extracted on uncropped frames. "
             "Crop support exists for the render-only data surface "
             "(reference parity, data/base.py:92-117); re-run "
-            "preparation/main.py on cropped images instead.")
+            "python -m level_s2fm_tpu_torch.prepare on cropped images "
+            "instead.")
     scene_data = LOADERS[dataset](opt)
 
     prep_dir = opt.data.get("prep_dir") or os.path.join(
@@ -278,7 +279,8 @@ def load_prepared_scene(opt) -> Dict:
     n_views_path = os.path.join(prep_dir, "n_views.npy")
     if not os.path.exists(n_views_path):
         raise FileNotFoundError(
-            f"{n_views_path} not found — run preparation/main.py first "
+            f"{n_views_path} not found — run python -m "
+            "level_s2fm_tpu_torch.prepare first "
             "(COLMAP keypoints/matches + pose graph)")
     n_views_geo = np.load(n_views_path, allow_pickle=True)
     dsamp = np.asarray([scene_data["factor_x"], scene_data["factor_y"]]).reshape(1, 2)

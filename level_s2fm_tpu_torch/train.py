@@ -49,10 +49,36 @@ def build_var(opt):
     return loaders.load_prepared_scene(opt)
 
 
+def check_data_devices(opt):
+    """Refuse ``parallel.data_devices`` values that ask for more than one
+    device: the JAX package shards its batches over that many devices
+    (``train.py``'s ``('data',)`` mesh); the port runs on one until
+    ``parallel/`` is ported (ROADMAP Queue 1). Empty, 1, and ``all`` with
+    one visible device (or with ``--cpu``) pass."""
+    pd = opt.get("parallel", None)
+    pd = pd.get("data_devices") if pd else None
+    if not pd:
+        return
+    if str(pd) == "all":
+        n = 1
+        if not opt.get("cpu", False):
+            import torch
+            n = torch.cuda.device_count()
+    else:
+        n = int(pd)
+    if n > 1:
+        raise ValueError(
+            f"parallel.data_devices={pd} asks for {n} devices; the port runs "
+            "on one device until parallel/ is ported to torch.distributed "
+            "(ROADMAP Queue 1). Set parallel.data_devices to 1 or "
+            "leave it empty.")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     from .config import build_options, save_options_file
     opt = build_options(argv)
+    check_data_devices(opt)
     os.makedirs(opt.output_path, exist_ok=True)
     save_options_file(opt)
     return _run(opt)

@@ -1,9 +1,12 @@
-"""COLMAP sparse-model writer (cameras/images/points3D, .bin and .txt).
+"""COLMAP sparse models (cameras/images/points3D, .bin and .txt).
 
-The port's own copy of the writer half of ``preparation/colmap_model.py``
-(the public COLMAP model format), which ``utils/export.export_colmap_model``
-needs: the camera, image and point records, ``rotmat_to_qvec`` and
-``write_model``.
+The port's own copy of ``preparation/colmap_model.py`` (the public COLMAP
+model format), both halves: the readers, which the COLMAP preparation
+backend (``preparation/main.run_colmap_backend``) uses for the
+registration order, and the writers, which ``utils/export.
+export_colmap_model`` uses. Records: ``ColmapCamera`` (with ``K()`` for
+the pinhole family), ``ColmapImage``, ``ColmapPoint3D``;
+``qvec_to_rotmat`` / ``rotmat_to_qvec``; ``read_model`` / ``write_model``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,78 @@ class ColmapImage:
     point3D_ids: np.ndarray = None  # [K] int64; -1 = untracked
 
 
+def qvec_to_rotmat(q: np.ndarray) -> np.ndarray:
+    w, x, y, z = q
+    return np.asarray([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def read_images_txt(path: str) -> Dict[int, ColmapImage]:
+    # blank observation lines are significant (an image with zero 2D
+    # points still owns a second line in the COLMAP format), so keep them
+    # and pair header/observation lines explicitly
+    images = {}
+    with open(path) as f:
+        lines = [l.strip() for l in f if not l.startswith("#")]
+    i = 0
+    while i < len(lines):
+        if not lines[i]:
+            i += 1
+            continue
+        parts = lines[i].split()
+        image_id = int(parts[0])
+        qvec = np.asarray(list(map(float, parts[1:5])))
+        tvec = np.asarray(list(map(float, parts[5:8])))
+        obs = lines[i + 1].split() if i + 1 < len(lines) else []
+        if obs:
+            vals = np.asarray(list(map(float, obs))).reshape(-1, 3)
+            xys, p3d = vals[:, :2], vals[:, 2].astype(np.int64)
+        else:
+            xys, p3d = None, None
+        images[image_id] = ColmapImage(image_id, qvec, tvec,
+                                       int(parts[8]), parts[9], xys, p3d)
+        i += 2
+    return images
+
+
+def read_images_bin(path: str) -> Dict[int, ColmapImage]:
+    images = {}
+    with open(path, "rb") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        for _ in range(n):
+            image_id = struct.unpack("<I", f.read(4))[0]
+            qvec = np.asarray(struct.unpack("<4d", f.read(32)))
+            tvec = np.asarray(struct.unpack("<3d", f.read(24)))
+            camera_id = struct.unpack("<I", f.read(4))[0]
+            name = b""
+            c = f.read(1)
+            while c != b"\x00":
+                name += c
+                c = f.read(1)
+            n2d = struct.unpack("<Q", f.read(8))[0]
+            xys, p3d = None, None
+            if n2d:
+                vals = struct.unpack("<" + "ddq" * n2d, f.read(24 * n2d))
+                xys = np.asarray(vals, np.float64).reshape(-1, 3)[:, :2]
+                p3d = np.asarray(vals[2::3], np.int64)
+            images[image_id] = ColmapImage(image_id, qvec, tvec,
+                                           camera_id, name.decode(), xys, p3d)
+    return images
+
+
+def read_images(model_dir: str) -> Dict[int, ColmapImage]:
+    bin_path = os.path.join(model_dir, "images.bin")
+    txt_path = os.path.join(model_dir, "images.txt")
+    if os.path.exists(bin_path):
+        return read_images_bin(bin_path)
+    if os.path.exists(txt_path):
+        return read_images_txt(txt_path)
+    raise FileNotFoundError(f"no images.bin/txt in {model_dir}")
+
+
+# ---------------------------------------------------------------- cameras
 # COLMAP camera-model table (public format): model_id -> (name, n_params).
 CAMERA_MODEL_PARAMS = {
     0: ("SIMPLE_PINHOLE", 3), 1: ("PINHOLE", 4), 2: ("SIMPLE_RADIAL", 4),
@@ -44,7 +119,56 @@ class ColmapCamera:
     height: int
     params: np.ndarray
 
+    def K(self) -> np.ndarray:
+        """3x3 intrinsic matrix. Pinhole-family layouts:
+        SIMPLE_* = (f, cx, cy[, k...]), others = (fx, fy, cx, cy[, k...])."""
+        p = self.params
+        if self.model.startswith("SIMPLE_") or self.model == "FOV":
+            fx = fy = p[0]
+            cx, cy = p[1], p[2]
+        else:
+            fx, fy, cx, cy = p[0], p[1], p[2], p[3]
+        return np.asarray([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
 
+
+def read_cameras_txt(path: str) -> Dict[int, ColmapCamera]:
+    cams = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            cams[int(parts[0])] = ColmapCamera(
+                int(parts[0]), parts[1], int(parts[2]), int(parts[3]),
+                np.asarray(list(map(float, parts[4:]))))
+    return cams
+
+
+def read_cameras_bin(path: str) -> Dict[int, ColmapCamera]:
+    cams = {}
+    with open(path, "rb") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        for _ in range(n):
+            cid, model_id, w, h = struct.unpack("<IiQQ", f.read(24))
+            name, n_params = CAMERA_MODEL_PARAMS[model_id]
+            params = np.asarray(struct.unpack(f"<{n_params}d",
+                                              f.read(8 * n_params)))
+            cams[cid] = ColmapCamera(cid, name, w, h, params)
+    return cams
+
+
+def read_cameras(model_dir: str) -> Dict[int, ColmapCamera]:
+    bin_path = os.path.join(model_dir, "cameras.bin")
+    txt_path = os.path.join(model_dir, "cameras.txt")
+    if os.path.exists(bin_path):
+        return read_cameras_bin(bin_path)
+    if os.path.exists(txt_path):
+        return read_cameras_txt(txt_path)
+    raise FileNotFoundError(f"no cameras.bin/txt in {model_dir}")
+
+
+# --------------------------------------------------------------- points3D
 @dataclass
 class ColmapPoint3D:
     point3D_id: int
@@ -55,6 +179,57 @@ class ColmapPoint3D:
     point2D_idxs: np.ndarray
 
 
+def read_points3D_txt(path: str) -> Dict[int, ColmapPoint3D]:
+    pts = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            track = np.asarray(list(map(int, parts[8:])))
+            pts[int(parts[0])] = ColmapPoint3D(
+                int(parts[0]),
+                np.asarray(list(map(float, parts[1:4]))),
+                np.asarray(list(map(int, parts[4:7])), np.uint8),
+                float(parts[7]), track[0::2], track[1::2])
+    return pts
+
+
+def read_points3D_bin(path: str) -> Dict[int, ColmapPoint3D]:
+    pts = {}
+    with open(path, "rb") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        for _ in range(n):
+            pid = struct.unpack("<Q", f.read(8))[0]
+            xyz = np.asarray(struct.unpack("<3d", f.read(24)))
+            rgb = np.asarray(struct.unpack("<3B", f.read(3)), np.uint8)
+            error = struct.unpack("<d", f.read(8))[0]
+            track_len = struct.unpack("<Q", f.read(8))[0]
+            track = np.asarray(struct.unpack(f"<{2 * track_len}i",
+                                             f.read(8 * track_len)))
+            pts[pid] = ColmapPoint3D(pid, xyz, rgb, error,
+                                     track[0::2], track[1::2])
+    return pts
+
+
+def read_points3D(model_dir: str) -> Dict[int, ColmapPoint3D]:
+    bin_path = os.path.join(model_dir, "points3D.bin")
+    txt_path = os.path.join(model_dir, "points3D.txt")
+    if os.path.exists(bin_path):
+        return read_points3D_bin(bin_path)
+    if os.path.exists(txt_path):
+        return read_points3D_txt(txt_path)
+    raise FileNotFoundError(f"no points3D.bin/txt in {model_dir}")
+
+
+def read_model(model_dir: str):
+    """(cameras, images, points3D) — the reference's read_model surface."""
+    return (read_cameras(model_dir), read_images(model_dir),
+            read_points3D(model_dir))
+
+
+# ---------------------------------------------------------------- writers
 def write_cameras_txt(cams: Dict[int, ColmapCamera], path: str):
     with open(path, "w") as f:
         f.write("# Camera list with one line of data per camera:\n"

@@ -49,7 +49,8 @@ RTOL = 2e-4
 
 @pytest.fixture(scope="module")
 def state():
-    return two_view_state(n_views=2)
+    with pytest.MonkeyPatch.context() as mp:
+        yield two_view_state(n_views=2, monkeypatch=mp)
 
 
 @pytest.fixture

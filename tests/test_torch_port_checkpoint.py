@@ -50,7 +50,8 @@ def _fresh_slots():
 
 @pytest.fixture(scope="module")
 def state():
-    return two_view_state(n_views=3)
+    with pytest.MonkeyPatch.context() as mp:
+        yield two_view_state(n_views=3, monkeypatch=mp)
 
 
 def _pts():

@@ -265,3 +265,32 @@ def test_cli_writes_options_metrics_and_results(tmp_path, monkeypatch):
                 "sparse/0/points3D.bin", "viewer.html", "render_cam0.png"):
         assert (out / rel).stat().st_size > 0, rel
     assert png.read_png(str(out / "render_cam0.png")).shape == (16, 16, 3)
+
+
+@pytest.mark.parametrize("yaml_name,value,cards,refused", [
+    ("scannet_multiroom", "2", 1, True), ("scannet_multiroom", None, 2, True),
+    ("scannet_multiroom", None, 1, False), ("scannet_multiroom", "1", 8, False),
+    ("synthetic", None, 8, False)])
+def test_data_devices_beyond_one_are_refused(yaml_name, value, cards, refused,
+                                             tmp_path, monkeypatch):
+    """``parallel.data_devices`` asking for more than one device raises
+    before any data is loaded or any file written; empty (configs/base.yaml),
+    1 and ``all`` on one card (configs/scannet_multiroom.yaml) pass."""
+    import torch
+    from level_s2fm_tpu_torch import train
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    out = tmp_path / "run"
+    argv = [f"--yaml=configs/{yaml_name}.yaml", f"--output_path={out}"]
+    if value is not None:
+        argv.append(f"--parallel.data_devices={value}")
+    opt = tbuild(argv)
+    expect = value or ("all" if yaml_name == "scannet_multiroom" else None)
+    got = opt.parallel.data_devices
+    assert (str(got) if got is not None else None) == expect
+    if refused:
+        monkeypatch.setattr(train, "build_var", lambda o: pytest.fail("data loaded"))
+        with pytest.raises(ValueError, match="parallel.data_devices"):
+            train.main(argv)
+        assert not out.exists()
+    else:
+        train.check_data_devices(opt)

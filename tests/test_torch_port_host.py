@@ -37,6 +37,8 @@ from level_s2fm_tpu_torch.sfm import hostgeom as thg
 from level_s2fm_tpu_torch.sfm import optim as toptim
 from level_s2fm_tpu_torch.sfm import phases as tphases
 
+from torch_port_helpers import use_jax_minigeom
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -54,7 +56,8 @@ def test_make_scene_is_bitwise_equal():
     assert sorted(tsyn.scene_to_var(b)) == sorted(jsyn.scene_to_var(a))
 
 
-def test_estimate_essential_is_identical():
+def test_estimate_essential_is_identical(monkeypatch):
+    use_jax_minigeom(monkeypatch)      # the JAX side must not take its cv2 fallback
     s = tsyn.make_scene(n_views=2, H=64, W=64, n_points=128, seed=1, noise_px=0.5)
     m = s.matches[0][0]
     kp0, kp1 = s.kypts[0][m[:, 0]], s.kypts[1][m[:, 1]]

@@ -38,7 +38,7 @@ from level_s2fm_tpu_torch.sfm import optim as toptim
 from level_s2fm_tpu_torch.sfm import phases as tphases
 from level_s2fm_tpu_torch.sfm import registration as treg
 
-from torch_port_helpers import copy_scene, two_view_state
+from torch_port_helpers import copy_scene, two_view_state, use_jax_minigeom
 
 GEO_LOSSES = ("reproj_error", "tracing_loss", "sdf_surf", "eikonal_loss", "all",
               "n_frames_re", "nonfinite")
@@ -46,7 +46,8 @@ GEO_LOSSES = ("reproj_error", "tracing_loss", "sdf_surf", "eikonal_loss", "all",
 
 @pytest.fixture(scope="module")
 def state():
-    return two_view_state(n_views=3)
+    with pytest.MonkeyPatch.context() as mp:
+        yield two_view_state(n_views=3, monkeypatch=mp)
 
 
 def _fresh(state):
@@ -89,7 +90,8 @@ def _jax_geoinit_batch(monkeypatch, jm, reg, cam):
     return got["phase"], got["batch"]
 
 
-def test_pnp_ransac_is_identical():
+def test_pnp_ransac_is_identical(monkeypatch):
+    use_jax_minigeom(monkeypatch)      # the JAX side must not take its cv2 fallback
     rng = np.random.default_rng(3)
     K = np.asarray([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]], np.float32)
     p3d = rng.uniform(-0.5, 0.5, (200, 3)).astype(np.float32)

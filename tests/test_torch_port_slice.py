@@ -27,7 +27,7 @@ from level_s2fm_tpu_torch.data import synthetic as tsyn
 from level_s2fm_tpu_torch.sfm import initialization as tinit
 from level_s2fm_tpu_torch.sfm import pipeline as tpipe
 
-from torch_port_helpers import jax_opt, torch_opt
+from torch_port_helpers import jax_opt, torch_opt, use_jax_minigeom
 
 LOSSES = ("reproj_error", "sdf_surf", "eikonal_loss", "rgb", "DC_Loss",
           "PSNR", "all", "nonfinite")
@@ -45,6 +45,12 @@ def _init_var(var):
 
 @pytest.fixture(scope="module")
 def both():
+    with pytest.MonkeyPatch.context() as mp:
+        use_jax_minigeom(mp)    # the JAX Initializer's RANSAC must not take cv2
+        yield _both()
+
+
+def _both():
     opt_j, opt_t = jax_opt(), torch_opt()
     jm = jpipe.LevelSfM(opt_j, seed=0)
     jm.load_data(jsyn.scene_to_var(jsyn.make_scene(n_views=2, H=16, W=16,

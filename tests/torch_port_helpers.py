@@ -172,7 +172,43 @@ def copy_scene(jm, tm):
                             [list(t) for t in jm.point_set.tracks])
 
 
-def two_view_state(n_views=3, extra=()):
+def use_jax_minigeom(monkeypatch, timeout_s=30.0):
+    """Make the JAX package's host geometry answer from its minigeom
+    library, as it does whenever the library loads at import.
+
+    ``level_s2fm_tpu.sfm.hostgeom`` decides once, at import, between
+    minigeom and its OpenCV fallback. Under ``pytest -n`` several workers
+    import it while another one's g++ (``cpp/minigeom.py::_try_build``,
+    ``tests/test_minigeom.py``) writes ``libminigeom.so`` in place; a
+    worker that loads the half-written file silently takes the fallback,
+    and a bitwise comparison with the port (which always uses minigeom)
+    then fails. This loads the library, retrying for up to ``timeout_s``
+    while a build finishes, and sets ``_HAS_MINIGEOM`` through
+    ``monkeypatch``. If the library cannot be loaded the test fails
+    saying so: it never compares against the fallback."""
+    import time
+    import pytest
+    from level_s2fm_tpu.cpp import minigeom as jmg
+    from level_s2fm_tpu.sfm import hostgeom as jhg
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            if jmg._load() is not None:
+                break
+            why = "the library is missing and its build failed"
+        except OSError as e:        # a file another process is still writing
+            jmg._LIB = None
+            why = str(e)
+        if time.monotonic() > deadline:
+            pytest.fail(f"the JAX package's minigeom library did not load within "
+                        f"{timeout_s:.0f} s ({why}); its host geometry would "
+                        "answer from the OpenCV fallback")
+        time.sleep(0.5)
+    monkeypatch.setattr(jhg, "_mg", jmg, raising=False)
+    monkeypatch.setattr(jhg, "_HAS_MINIGEOM", True)
+
+
+def two_view_state(n_views=3, extra=(), *, monkeypatch):
     """The JAX package's two-view start of the tiny configuration on an
     ``n_views`` scene, and the port's engine given the same state by
     ``copy_scene``. Returns (jax engine, port engine).
@@ -183,12 +219,15 @@ def two_view_state(n_views=3, extra=()):
     skipped, since compiling it would take most of a test file's time
     budget. Instead the hash table gets visible features
     (``perturb_table``), so the table's contribution and gradient are
-    exercised."""
+    exercised. The JAX side's RANSAC runs on minigeom
+    (``use_jax_minigeom`` on ``monkeypatch``, which the caller keeps
+    open while it compares the two engines)."""
     import jax
     import jax.numpy as jnp
     from level_s2fm_tpu.sfm import initialization as jinit
     from level_s2fm_tpu.sfm import pipeline as jpipe
     from level_s2fm_tpu_torch.sfm import pipeline as tpipe
+    use_jax_minigeom(monkeypatch)
     args = [f"--data.n_views={n_views}", *extra]
     jm = jpipe.LevelSfM(jax_opt(args), seed=0)
     jm.load_data(_scene_var(n_views))
