@@ -39,8 +39,8 @@ failure raises and exits non-zero):
    and without ``torch.use_deterministic_algorithms``, from the same
    parameters.
 6. register — the second main path: the same model goes on to register
-   views 3 and 4 (``sfm_mode: full``: PnP, geoinit, one single-camera
-   sfm_refine BA, up to 5 local and 5 global BA cycles, refine). Depth
+   view 3 (``REGISTER_VIEWS``; ``sfm_mode: full``: PnP, geoinit, one
+   single-camera sfm_refine BA, up to 5 local and 5 global BA cycles, refine). Depth
    is cut to the iteration counts of ``configs/synthetic.yaml`` (geoinit
    30 x 5 steps, BA 150, refine 100; the full config's 100 x 5, 1000,
    500). Every view must register and every loss stay finite. Per view
@@ -106,12 +106,35 @@ failure raises and exits non-zero):
    translation errors within 2x of the JAX package's values for the same
    command, taken over its rounding spread (``TRAD_SPREAD``, from
    ``trad_spread.py``); it renders nothing, so K1/K2 do not launch.
-   (b) ``polish_trad_ba`` (``--cycles=2 --iters=1500``) on the six-view
+   (b) ``polish_trad_ba`` (``--cycles=1 --iters=1500``) on the six-view
    checkpoint phase prepared leaves: the mean reprojection error must
    fall and the ATE must not rise; prints each cycle's errors and wall
    time. (c) one ``tri_trad``-only run of the synthetic scene in
    ``full`` mode (DLT triangulation with the SDF post-fit, then
    sfm_refine, BA and refine), where K1/K2 launch.
+
+12. parallel — data-parallel ranks through ``parallel.distributed.launch``
+   (the path ``train.main`` takes): ``PARALLEL_RANKS`` ranks, which
+   share the one card over gloo (CUDA tensors staged through the host),
+   or one rank per card over NCCL where that many cards are visible.
+   (a) One init step at phase init's full width from the seed's
+   parameters and draws, under deterministic algorithms: every loss
+   within 1e-6 relative and every parameter within 1e-5 of one rank's,
+   the ranks bit for bit equal; then the steady ms per step at one rank
+   and at the ranks, and the ms of one all-reduce of the gradients.
+   (b) The bands run at the ranks: within the bands, and within the JAX
+   package's 1-vs-8-device bounds (``WORLD_BOUNDS``, points within
+   max(8, 15%)) of phase bands' one-rank values. (c)
+   ``configs/scannet_multiroom_synth.yaml`` (``MULTIROOM_ARGS``: fast, 3
+   views, its init and BA cut, its geoinit as it stands), under
+   deterministic algorithms: its init at one rank, then view 3 from that
+   checkpoint at one rank and at the ranks: both register it with the
+   BA under 1 px, the ranks' final values within ``WORLD_BOUNDS`` of one
+   rank's (the rotation by the relative rotations of the camera pairs
+   against GT; the Procrustes rotation error is printed beside them),
+   the ranks' parameters equal; the wall s per stage of each world.
+   K1/K2 launch in every rank; their counts are summed over the ranks
+   and every shape launched is held to the plain versions.
 
 Phase reference also holds one InitPhase step and one
 ``BAPhase('rad_init')`` step under ``OPTION_SWITCHES`` (tiny widths) to
@@ -147,8 +170,9 @@ FULL_WIDTH_ARGS = [
 ]
 # the config's optim.init.max_iter of 500, cut so the run fits the time limit
 INIT_STEPS = 100
-#: views of the synthetic scene the register phase brings in
-REGISTER_VIEWS = 4
+#: views of the synthetic scene the register phase brings in: one past
+#: the init, to leave phase parallel its time
+REGISTER_VIEWS = 3
 #: known-good final values of the 3-view fast run (the JAX package on the
 #: CPU) and the factor a value may reach before the bands phase fails
 BANDS = {"reproj_px": 0.315, "rot_err_deg": 6.0, "t_err": 0.018}
@@ -187,8 +211,9 @@ OPTION_SWITCHES = ["--Ablate_config.dual_field", "--SDF.VolSDF.volsdf_sampling",
                    "--SDF.Hash_config.paired_dense",
                    "--SDF.VolSDF.reeval_compact=0.5",
                    "--SDF.VolSDF.march_compact=0.25"]
-#: init steps of the options phase (phase init's INIT_STEPS, halved)
-OPTION_STEPS = 50
+#: init steps of the options phase (phase init's INIT_STEPS, cut to 30 to
+#: make room for phase parallel)
+OPTION_STEPS = 30
 #: the ablations phase's trad run: configs/synthetic.yaml as it stands
 TRAD_ARGS = ["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
              "--sfm_mode=fast", "--Ablate_config.tri_trad",
@@ -210,12 +235,51 @@ TRAD_SPREAD = {"median": {"reproj_px": 0.03955, "rot_err_deg": 0.085826668888330
                "max": {"reproj_px": 0.046, "rot_err_deg": 0.7703208923339844,
                        "t_err": 0.0003573574067559093}}
 TRAD_FACTOR = 2.0
-#: the pose polish of the prepared run, as results/synthhard_r5.md ran it
-POLISH_ARGS = ["--cycles=2", "--iters=1500"]
+#: the pose polish of the prepared run: the first of the two cycles
+#: results/synthhard_r5.md ran, to leave phase parallel its time
+POLISH_ARGS = ["--cycles=1", "--iters=1500"]
 #: DLT triangulation under the neural BA and refine: configs/synthetic.yaml
 #: in full mode
 TRI_TRAD_ARGS = ["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
                  "--Ablate_config.tri_trad"]
+
+
+#: phase parallel: the data-parallel ranks held against one rank
+PARALLEL_RANKS = 2
+#: (a) steady init steps timed at each world
+PARALLEL_STEADY_STEPS = 5
+#: (a) one step at PARALLEL_RANKS ranks against one: every loss to this
+#: relative error, every parameter to this absolute one
+PARALLEL_LOSS_RTOL, PARALLEL_PARAM_ATOL = 1e-6, 1e-5
+#: (b), (c): the final values of the run at PARALLEL_RANKS ranks against
+#: one rank's, to the bounds of the JAX package's 1-vs-8-device pipeline
+#: test (tests/test_sharded_pipeline.py:152-156); the points within
+#: max(8, 15%)
+WORLD_BOUNDS = {"rot_err_deg": 4.0, "t_err": 5e-3, "ate": 5e-3, "reproj_px": 5e-2}
+#: (c) configs/scannet_multiroom_synth.yaml as it stands (24 views of
+#: data/scannet/multiroom0 at 192x192, the widths of configs/levels2fm.yaml),
+#: fast mode, 3 views, deterministic algorithms; its init 500 and BA 2000
+#: steps cut to 300 and 200 to fit the time limit, its geoinit (100 steps)
+#: as it stands. At that depth view 3's BA ends under 1 px at one rank, so
+#: the local and the global BA each stop after one cycle; with geoinit 20
+#: it stayed at 3.6 px through five cycles of each, and a second one-rank
+#: run with the card's float atomics then moved t_err by 0.016 (PERF.md,
+#: section 6). One rank makes the init; view 3 is then registered from its
+#: checkpoint at one rank and at the ranks (the init at the ranks does
+#: not fit the time limit beside them).
+MULTIROOM_ARGS = ["--yaml=" + os.path.join(REPO, "configs", "scannet_multiroom_synth.yaml"),
+                  "--sfm_mode=fast", "--max_views=3", "--optim.init.max_iter=300",
+                  "--optim.ba.max_iter=200"]
+#: (c) a converged view 3 registers below this reprojection error (the
+#: BA's own stop, ``pipeline.register_view``)
+MULTIROOM_MAX_REPROJ_PX = 1.0
+#: (c) holds the rotation by the relative rotations of the camera pairs
+#: (0, 1) and (0, 2) against GT, as phase bands' oracles do, and prints the
+#: Procrustes rotation error beside them without holding it: the
+#: alignment of three near-collinear camera centres leaves the rotation
+#: about their line free, and it read 92.6 deg for a one-rank view 3 that
+#: converged to 0.58 px with t_err 5.5e-3 (phase prepared too checks that
+#: rotation only from 5 cameras up)
 
 
 def log(*a):
@@ -889,6 +953,47 @@ def phase_bands():
     for k, v in BANDS.items():
         assert math.isfinite(got[k]) and got[k] <= BANDS_FACTOR * v, (k, got[k], v)
     assert rel["0-1"] < 5.0 and rel["0-2"] < 8.0, rel
+    return {**got, "ate": ate, "n_points": len(model.point_set)}
+
+
+def _bands_run(device):
+    """The bands run (3 views of configs/synthetic.yaml, fast mode,
+    deterministic algorithms) on ``device``, under the active group;
+    returns its final values, relative rotations and wall s."""
+    import numpy as np
+    import torch
+    from level_s2fm_tpu_torch.config import build_options
+    from level_s2fm_tpu_torch.geometry import lie
+    from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
+    from level_s2fm_tpu_torch.train import build_var
+    opt = build_options(["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
+                         "--sfm_mode=fast",
+                         "--output_path=" + os.path.join(REPO, "output", "chip_smoke",
+                                                         "parallel_bands")])
+    model = LevelSfM(opt, seed=int(opt.seed), device=device)
+    model.load_data(build_var(opt))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        ok = model.train(max_views=3, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rot, t_err, ate = model.camera_set.eval_poses(verbose=False)
+    poses, gt = model.camera_set.all_poses()
+    p, g = torch.as_tensor(poses), torch.as_tensor(gt)
+    rel = {}
+    for i, j in ((0, 1), (0, 2)):
+        r = lie.pose_compose_pair(lie.pose_invert(p[i]), p[j])
+        r_gt = lie.pose_compose_pair(lie.pose_invert(g[i]), g[j])
+        rel[f"{i}-{j}"] = float(np.rad2deg(float(lie.rotation_distance(
+            r_gt[:3, :3], r[:3, :3]))))
+    return {"ok": bool(ok), "cam_ids": list(model.camera_set.cam_ids),
+            "reproj_px": model.view_log[-1]["reproj_px"], "rot_err_deg": rot,
+            "t_err": t_err, "ate": ate, "n_points": len(model.point_set),
+            "rel_rot_deg": rel, "wall_s": wall,
+            "stage_s": model.view_log[-1]["stage_s"], "se3": model.camera_set.all_se3()}
 
 
 # --------------------------------------------------------------------------- scenes
@@ -1517,6 +1622,260 @@ def _profile_steps(phase, state, batch, gen, n=3):
                                           for e in top}}
 
 
+# --------------------------------------------------------------------------- parallel
+
+def _init_step(device, steady_steps):
+    """(a) at full width on ``device`` under the active group: one init
+    step from the seed's parameters and draws under deterministic
+    algorithms (its losses and parameters), then the steady ms per step
+    over ``steady_steps`` more, and, under a group, the ms of one
+    all-reduce of the step's gradients."""
+    import torch
+    from level_s2fm_tpu_torch.config import build_options
+    from level_s2fm_tpu_torch.parallel import distributed as pdist
+    from level_s2fm_tpu_torch.parallel import mesh as pmesh
+    from level_s2fm_tpu_torch.sfm import bundle
+    from level_s2fm_tpu_torch.sfm.initialization import Initializer
+    from level_s2fm_tpu_torch.sfm.optim import tree_leaves
+    from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
+    from level_s2fm_tpu_torch.train import _digest, build_var
+    opt = build_options(FULL_WIDTH_ARGS + [
+        "--output_path=" + os.path.join(REPO, "output", "chip_smoke", "parallel_init")])
+    m = LevelSfM(opt, seed=int(opt.seed), device=device)
+    var = build_var(opt)
+    m.load_data(var)
+    init = Initializer(opt, m.cfgs, m.camera_set, m.point_set, _init_var(var),
+                       device=device)
+    state = init.phase.init_state(m.params)
+    batch = dict(init.batch)
+    batch["occ"] = bundle.maybe_build_occ(opt, m.cfgs, state["params"])
+    gen = torch.Generator().manual_seed(1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        met = init.phase.step(state, batch, gen)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    params = [p.detach().cpu().numpy() for p in tree_leaves(state["params"])]
+    out = {"losses": {k: float(v) for k, v in met.items()}, "params": params,
+           "digest": _digest(params)}
+    init.phase.step(state, batch, gen)
+    pdist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steady_steps):
+        init.phase.step(state, batch, gen)
+    torch.cuda.synchronize()
+    out["ms_per_step"] = (time.perf_counter() - t0) / steady_steps * 1e3
+    if pmesh.get_group() is not None:
+        grads = [torch.ones_like(p) for p in state["opt"].leaves]
+        pdist.all_reduce_grads(grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steady_steps):
+            pdist.all_reduce_grads(grads)
+        torch.cuda.synchronize()
+        out["allreduce_ms"] = (time.perf_counter() - t0) / steady_steps * 1e3
+        out["allreduce_mib"] = sum(g.numel() * g.element_size() for g in grads) / 2 ** 20
+    return out
+
+
+def _parallel_rank(multiroom_argv):
+    """One rank of phase parallel: (a) the init step, (b) the bands run,
+    (c) view 3 of configs/scannet_multiroom_synth.yaml from the one-rank
+    init's checkpoint through ``train._rank_run`` (the function
+    ``train.main`` launches), with the composite kernels' launches of
+    each part."""
+    import torch
+    from level_s2fm_tpu_torch import train
+    from level_s2fm_tpu_torch.parallel import distributed as pdist
+    from level_s2fm_tpu_torch.parallel import mesh as pmesh
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    group = pmesh.get_group()
+    out = {"rank": group.rank, "device": str(group.device), "launches": {}, "shapes": {}}
+
+    def part(name, fn):
+        fc.reset_launches()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        out["launches"][name] = dict(fc.LAUNCHES)
+        out["shapes"][name] = {k: dict(v) for k, v in fc.SHAPES.items()}
+        pdist.barrier()
+
+    part("init_step", lambda: _init_step(group.device, PARALLEL_STEADY_STEPS))
+    if group.rank:
+        out["init_step"]["params"] = None
+    part("bands", lambda: _bands_run(group.device))
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        part("multiroom", lambda: train._rank_run(multiroom_argv))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["multiroom"]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _close(name, got, ref, bounds):
+    """The final values of a run at several ranks against one rank's."""
+    diffs = {k: abs(got[k] - ref[k]) for k in bounds}
+    n_ok = abs(got["n_points"] - ref["n_points"]) <= max(8, 0.15 * ref["n_points"])
+    log(f"[parallel] {name}: |ranks - one rank| " + json.dumps(diffs)
+        + f" points {got['n_points']} vs {ref['n_points']}")
+    for k, b in bounds.items():
+        assert math.isfinite(got[k]) and diffs[k] < b, (name, k, got[k], ref[k], b)
+    assert n_ok, (name, got["n_points"], ref["n_points"])
+
+
+def phase_parallel(bands_ref):
+    """Data-parallel ranks on the card (``parallel.distributed.launch``,
+    the path ``train.main`` takes): with one visible GPU, PARALLEL_RANKS
+    ranks share it over gloo; with more, one rank per card over NCCL.
+    (a) one full-width init step at the ranks against one rank (losses,
+    parameters, the ranks bitwise equal) and the steady ms per step at
+    each world; (b) the bands run at the ranks, held to the bands and to
+    the 1-vs-8 bounds against phase bands' one rank; (c) the multiroom
+    config's init at one rank, then its view 3 from that checkpoint at
+    one rank and at the ranks, both under MULTIROOM_MAX_REPROJ_PX, held
+    to the 1-vs-8 bounds. Returns (launch counts, launch shapes) summed
+    over the ranks and the one-rank runs."""
+    import numpy as np
+    import torch
+    from level_s2fm_tpu_torch import train
+    from level_s2fm_tpu_torch.parallel import distributed as pdist
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+
+    n_gpu = torch.cuda.device_count()
+    if n_gpu >= PARALLEL_RANKS:
+        devices = [f"cuda:{i}" for i in range(PARALLEL_RANKS)]
+    else:
+        devices = ["cuda:0"] * PARALLEL_RANKS
+    backend = pdist.default_backend(devices)
+    log(f"[parallel] {PARALLEL_RANKS} ranks on {devices} over {backend} "
+        f"({n_gpu} visible GPU(s))")
+
+    # one rank, in this process
+    fc.reset_launches()
+    one = _init_step(torch.device("cuda"), PARALLEL_STEADY_STEPS)
+    init_dir = _out_dir("parallel_multiroom_init")
+    walls = {}
+
+    def multiroom(name, argv):
+        t0 = time.perf_counter()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            m = train.main(MULTIROOM_ARGS + argv + ["--parallel.data_devices=1"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return m
+
+    model = multiroom("init", ["--max_views=2", "--output_path=" + init_dir])
+    init_steps = len(model.initializer._metrics["all"])
+    init_wall = model.timers.totals.get("init")
+    load = ["--load=" + os.path.join(init_dir, "model.ckpt")]
+    model = multiroom("view3", load + ["--output_path=" + _out_dir("parallel_multiroom_1")])
+    multi1 = {"summary": model.summary, "view_log": model.view_log,
+              "se3": model.camera_set.all_se3(),
+              "pose_gt": np.stack([c.pose_gt for c in model.camera_set.cameras])}
+    launches = dict(fc.LAUNCHES)
+    shapes = {k: dict(v) for k, v in fc.SHAPES.items()}
+    del model
+    torch.cuda.empty_cache()
+
+    argv2 = MULTIROOM_ARGS + load + ["--output_path=" + _out_dir("parallel_multiroom_2")]
+    t0 = time.perf_counter()
+    ranks = pdist.launch(_parallel_rank, devices, backend, args=(argv2,))
+    wall_launch = time.perf_counter() - t0
+    for r in ranks:
+        for part in r["launches"].values():
+            for k in launches:
+                launches[k] += part[k]
+        for part in r["shapes"].values():
+            for k, v in part.items():
+                for shape, n in v.items():
+                    shapes[k][shape] = shapes[k].get(shape, 0) + n
+
+    for r in ranks:
+        for name in ("init_step", "bands"):
+            n = r["launches"][name]
+            assert n["fwd"] > 0 and n["bwd"] > 0, (r["rank"], name, n)
+    # (a)
+    r0 = ranks[0]["init_step"]
+    assert len({r["init_step"]["digest"] for r in ranks}) == 1, "ranks differ"
+    loss_err = {k: abs(r0["losses"][k] - v) / max(abs(v), 1e-30)
+                for k, v in one["losses"].items()}
+    param_err = max(float(np.abs(a - b).max()) for a, b in zip(r0["params"], one["params"]))
+    log("[parallel] (a) init step at full width, deterministic: "
+        + json.dumps({"loss_rel_err": loss_err, "param_max_abs_err": param_err,
+                      "ranks_bitwise_equal": True,
+                      "ms_per_step": {"1": one["ms_per_step"],
+                                      str(PARALLEL_RANKS): r0["ms_per_step"]},
+                      "allreduce_ms": r0["allreduce_ms"],
+                      "allreduce_mib": r0["allreduce_mib"],
+                      "launches_per_rank": [r["launches"]["init_step"] for r in ranks]}))
+    for k, e in loss_err.items():
+        assert e <= PARALLEL_LOSS_RTOL, (k, r0["losses"][k], one["losses"][k])
+    assert param_err <= PARALLEL_PARAM_ATOL, param_err
+
+    # (b)
+    b = ranks[0]["bands"]
+    assert all(np.array_equal(r["bands"]["se3"], b["se3"]) for r in ranks)
+    assert b["ok"] and b["cam_ids"] == [0, 1, 2], b["cam_ids"]
+    log("[parallel] (b) bands at the ranks: " + json.dumps(
+        {k: v for k, v in b.items() if k != "se3"}))
+    for k, v in BANDS.items():
+        assert math.isfinite(b[k]) and b[k] <= BANDS_FACTOR * v, (k, b[k], v)
+    assert b["rel_rot_deg"]["0-1"] < 5.0 and b["rel_rot_deg"]["0-2"] < 8.0
+    _close("(b) bands", b, bands_ref, WORLD_BOUNDS)
+
+    # (c)
+    c = ranks[0]["multiroom"]
+    assert len({r["multiroom"]["params_digest"] for r in ranks}) == 1, "ranks differ"
+    s1, s2 = multi1["summary"], c["summary"]
+    assert s1["ok"] and s2["ok"] and len(s1["registered"]) == len(s2["registered"]) == 3
+    assert c["cam_ids"] == [int(i) for i in s1["registered"]], c["cam_ids"]
+
+    def row(s, se3):
+        return {"reproj_px": s["reproj_px"], "rot_err_deg": s["rot_error_deg"],
+                "t_err": s["t_error"], "ate": s["ate"], "n_points": s["n_points"],
+                "rel_rot_deg": _rel_rot_deg(se3, multi1["pose_gt"])}
+    r1, r2 = row(s1, multi1["se3"]), row(s2, c["se3"])
+    log("[parallel] (c) multiroom: " + json.dumps({
+        "init_one_rank": {"wall_s": walls["init"], "init_steps": init_steps,
+                          "init_ms_per_step": init_wall / init_steps * 1e3},
+        "one_rank": {**r1, "wall_s": walls["view3"],
+                     "stage_s": [v["stage_s"] for v in multi1["view_log"]]},
+        "ranks": {**r2, "wall_s": c["wall_s"],
+                  "stage_s": [v["stage_s"] for v in c["view_log"]]},
+        "launch_s": wall_launch}))
+    for r in (r1, r2):
+        assert r["reproj_px"] < MULTIROOM_MAX_REPROJ_PX, ("(c) not converged", r)
+    _close("(c) multiroom", r2, r1,
+           {k: v for k, v in WORLD_BOUNDS.items() if k != "rot_err_deg"})
+    for pair, deg in r2["rel_rot_deg"].items():
+        diff = abs(deg - r1["rel_rot_deg"][pair])
+        assert diff < WORLD_BOUNDS["rot_err_deg"], ("(c) multiroom", pair, deg, diff)
+    return launches, shapes
+
+
+def _rel_rot_deg(se3, pose_gt):
+    """Rotation error (deg) of the relative poses of the camera pairs
+    (0, 1) and (0, 2) against GT: no sim(3) alignment needed."""
+    import numpy as np
+    import torch
+    from level_s2fm_tpu_torch.geometry import lie
+    p = lie.se3_to_SE3(torch.as_tensor(np.asarray(se3, np.float32)))
+    g = torch.as_tensor(np.asarray(pose_gt, np.float32))
+    out = {}
+    for i, j in ((0, 1), (0, 2)):
+        rel = lie.pose_compose_pair(lie.pose_invert(p[i]), p[j])
+        rel_gt = lie.pose_compose_pair(lie.pose_invert(g[i]), g[j])
+        out[f"{i}-{j}"] = float(np.rad2deg(float(lie.rotation_distance(
+            rel_gt[:3, :3], rel[:3, :3]))))
+    return out
+
+
 # --------------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -1562,7 +1921,7 @@ def main(argv=None):
         rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
     log("[launches] init " + json.dumps(launches) + " register "
         + json.dumps(reg_launches))
-    phase_bands()
+    bands_ref = phase_bands()
     log(f"[time] {time.time() - t_start:.1f} s")
     phase_scenes()
     log(f"[time] {time.time() - t_start:.1f} s")
@@ -1586,6 +1945,14 @@ def main(argv=None):
         rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
     log("[launches] options " + json.dumps(opt_launches) + " ablations "
         + json.dumps(abl_launches))
+    log(f"[time] {time.time() - t_start:.1f} s")
+    par_launches, par_shapes = phase_parallel(bands_ref)
+    shapes = sorted(set(par_shapes["fwd"]) | set(par_shapes["bwd"]))
+    err = hold_composite(shapes, torch.device("cuda"), tag="parallel kernels")
+    for rec, kind in zip(recs, ("fwd", "bwd")):
+        rec["launches"] += par_launches[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
+    log("[launches] parallel " + json.dumps(par_launches))
     log(f"[done] {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -257,10 +257,16 @@ def _active_budget(frac: float, n: int) -> int:
 
 @torch.no_grad()
 def sphere_march(params, cfg: SDFConfig, ray0: torch.Tensor,
-                 ray_dir: torch.Tensor) -> SphereMarch:
+                 ray_dir: torch.Tensor, stop_count=None) -> SphereMarch:
     """Bidirectional fixed-trip sphere-trace march (detached).
 
-    ray0/ray_dir: [B,N,3] (ray_dir need not be unit).
+    ray0/ray_dir: [B,N,3] (ray_dir need not be unit). ``stop_count``,
+    if given, maps a step's unfinished start-side rays [B*N] (bool) to
+    the 0-d count that decides whether the loop goes on (the caller of a
+    sharded batch counts every rank's valid rows, so that the march runs
+    as long as one over the global batch: its length sets how many steps
+    every ray's depth sums); else the local count decides. The other
+    counts only size exact compactions.
     """
     BN = ray0.shape[0] * ray0.shape[1]
     o = ray0.reshape(BN, 3).detach()
@@ -308,10 +314,13 @@ def sphere_march(params, cfg: SDFConfig, ray0: torch.Tensor,
         counts = [new_unf_s.sum(), new_unf_e.sum()]
         if count_uniq and i > 0:
             counts.append((pts_before != track[i - 1]).any(dim=-1).sum())
+        if stop_count is not None:
+            counts.append(stop_count(new_unf_s))
         # the step's one host read: unfinished rays of each side, and the
         # row's distinct points
         n_s, n_e, *moved = torch.stack(counts).tolist()
-        if not n_s:
+        n_go = moved.pop() if stop_count is not None else n_s
+        if not n_go:
             # no step runs from here on: every later JAX step is a no-op
             break
         track[i] = pts_before

@@ -20,6 +20,7 @@ import torch
 
 from ..fields import sdf as sdf_mod
 from ..geometry import transforms as T
+from ..parallel import distributed as pdist
 from ..rendering import raymarch as rm
 from . import entities, optstate
 from .phases import BAPhase, PhaseCfgs, RefinePhase
@@ -207,7 +208,8 @@ class Bundler:
         for j, cid in enumerate(self.cam_pick_ids):
             self.cameraset(cid).se3 = se3_new[j].copy()
         if not self.opt.Ablate_config.get("replicate_update_xyzs_bug", False):
-            xyzs_new = state["xyzs"].cpu().numpy()[:len(self.pts_pick_ids)]
+            # the points are carried sharded over the ranks: gather them
+            xyzs_new = pdist.fetch_host(state["xyzs"], len(self.pts_pick_ids))
             self.pointset.update_xyzs(self.pts_pick_ids, xyzs_new)
         return {"sdf": p["sdf"], "rad": p["rad"]}, reproj
 

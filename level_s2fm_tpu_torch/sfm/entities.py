@@ -19,6 +19,8 @@ import torch
 
 from ..geometry import lie
 from ..geometry import transforms as T
+from ..parallel import distributed as pdist
+from ..parallel import mesh as pmesh
 
 
 def pad_to_bucket(n: int, buckets=(64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384,
@@ -204,11 +206,44 @@ class PointSet:
         """Points still referenced by at least one track entry."""
         return np.asarray([len(t) > 0 for t in self.tracks], bool)
 
+    def load_state(self, xyzs: np.ndarray, tracks):
+        """Replace every point and track (``sync_scene``)."""
+        self.xyz = np.zeros((max(len(xyzs), self.xyz.shape[0]), 3), np.float32)
+        self.xyz[:len(xyzs)] = xyzs
+        self.n = len(xyzs)
+        self.tracks = [list(t) for t in tracks]
+
     def get_parameters(self) -> Dict:
         """Checkpointable point state: xyz and feature tracks (``xyz``
         and ``tracks`` are also what the COLMAP export reads)."""
         return {"xyzs": self.all_xyzs().copy(),
                 "feat_tracks": [list(t) for t in self.tracks]}
+
+
+def sync_scene(cameraset: CameraSet, pointset: PointSet, extra_cams=()):
+    """Make every rank's host scene rank 0's (the JAX package's
+    ``broadcast_host_array``): each camera's se3 and keypoint-to-point
+    map (of ``cameraset`` and of ``extra_cams``, a camera not yet added)
+    and every point and track. Host decisions are made on rank 0; this
+    is where the other ranks take them. No active group: nothing."""
+    if pmesh.get_group() is None:
+        return
+    cams = list(cameraset.cameras) + list(extra_cams)
+    state = None
+    if pdist.is_primary():
+        state = ([c.id for c in cams], [c.se3 for c in cams],
+                 [c.idx2d_to_3d for c in cams], pointset.all_xyzs(),
+                 pointset.tracks)
+    ids, se3s, maps, xyzs, tracks = pdist.broadcast_object(state)
+    if pdist.is_primary():
+        return
+    if ids != [c.id for c in cams]:
+        raise RuntimeError(f"rank {pmesh.get_group().rank} holds cameras "
+                           f"{[c.id for c in cams]}, rank 0 {ids}")
+    for c, se3, m in zip(cams, se3s, maps):
+        c.se3 = np.array(se3, np.float32)
+        c.idx2d_to_3d = np.array(m, np.int64)
+    pointset.load_state(xyzs, tracks)
 
 
 def _reprojection(cam: Camera, pointset: PointSet):

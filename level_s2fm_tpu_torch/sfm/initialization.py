@@ -21,6 +21,7 @@ import torch
 from .. import resolve_device
 from ..config import scene_opt
 from ..geometry import lie, transforms as T
+from ..parallel import distributed as pdist
 from . import entities, hostgeom, optstate
 from .phases import InitPhase, PhaseCfgs
 
@@ -76,7 +77,7 @@ class Initializer:
 
         if cam_info_reloaded is None:
             w2c0 = bootstrap_cam0_pose(opt)
-            tv = hostgeom.estimate_essential(kp0, kp1, intr)
+            tv = pdist.on_primary(lambda: hostgeom.estimate_essential(kp0, kp1, intr))
             if not tv.success:
                 raise RuntimeError("two-view essential-matrix estimation failed")
             self.essential = tv
@@ -232,7 +233,7 @@ class Initializer:
         """The init's match images (``output_path/init_mch/``): all pairs,
         and the pairs the filter dropped; a failure never stops the run."""
         out = self.opt.get("output_path", None)
-        if not out:
+        if not out or not pdist.is_primary():
             return
         try:
             import os

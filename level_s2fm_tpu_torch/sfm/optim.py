@@ -8,11 +8,23 @@ base_lr * gamma**t. This is the same math (``adam_stacked``'s, without
 its stacked-moment layout, which only worked around a TPU compiler
 limit), written as tensor code so that ``phases.guarded_update`` can skip
 a step and sanitize the moments exactly as the JAX package does.
+
+The update is rounded as ``adam_stacked`` rounds it under ``jit`` on the
+CPU, to the last bit: b1, b2, the bias corrections 1 - b^t and the
+decayed rate base_lr * gamma^t are float32 scalars (numpy's float32
+``pow`` is XLA's); each moment update is one fused multiply-add of the
+rounded decay product, mu = fma(g, 1 - b1, mu * b1) and
+nu = fma(g * (1 - b2), g, nu * b2); the update is
+mu / (bc1 * (sqrt(nu / bc2) + eps)) * step, the form XLA simplifies
+(mu / bc1) / (...) to, with a correctly rounded square root. The fma and
+the root are computed in float64 and rounded once to float32 (a float32
+product is exact in float64; a root rounded twice is rounded correctly).
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 
@@ -25,6 +37,11 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     raise TypeError(f"unexpected leaf type {type(tree)}")
+
+
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for float32 operands, rounded once to float32."""
+    return (a.double() * b + c.double()).float()
 
 
 def decay_gamma(lr: float, lr_end: float, max_iter: int) -> float:
@@ -63,17 +80,25 @@ class PhaseAdam:
 
     @torch.no_grad()
     def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Advance the moments and the step count; return the updates."""
-        t = self.count
+        """Advance the moments and the step count; return the updates.
+        Every scalar is a float32 value known on the host: nothing here
+        reads the device."""
+        f32 = np.float32
+        t = f32(self.count)
         self.count += 1
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
+        b1, b2, n = f32(self.b1), f32(self.b2), f32(self.count)
+        c1, c2 = float(f32(1.0 - self.b1)), float(f32(1.0 - self.b2))
+        bc1 = float(f32(1.0) - b1 ** n)
+        bc2 = float(f32(1.0) - b2 ** n)
+        eps = float(f32(self.eps))
+        decay = f32(self.gamma) ** t
         out = []
         for mu, nu, g, lr in zip(self.mu, self.nu, grads, self.lrs):
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).add_(g * g, alpha=1.0 - self.b2)
-            step = -lr * self.gamma ** t
-            out.append(step * (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps))
+            mu.copy_(_fma(g, c1, mu * float(b1)))
+            nu.copy_(_fma(g * c2, g, nu * float(b2)))
+            root = torch.sqrt((nu / bc2).double()).float()
+            step = -float(f32(lr) * decay)
+            out.append(mu / (bc1 * (root + eps)) * step)
         return out
 
     @torch.no_grad()

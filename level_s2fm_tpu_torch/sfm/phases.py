@@ -15,6 +15,17 @@ Every draw can also be given, so tests can hand both packages the same
 draws: the rays (``rays_idx``) and the tracing camera (``trace_cam``) of
 ``render_core``, the eikonal samples of a sphere trace (``draws``) and
 geoinit's existing-point subsample (``exist_pick``).
+
+Data parallel (``parallel``): under an active group, ``render_core``
+shards its rays and tracing rows over the ranks, and ``BAPhase`` its
+track rows (``shard_rows``; the draws are made for the global batch, so
+N ranks draw what one draws). Their loss terms are the ranks' parts of
+the global means (``losses.masked_mean(sharded=True)``), their gradients
+are summed over the ranks before ``guarded_update`` (``descend(sharded=
+True)``) and the metrics a step returns are the global values. The
+phases the JAX package does not shard (``GeoInitPhase``, the trad
+phases) run in full on every rank and take rank 0's gradient; the init's
+keypoint terms count once (``losses.replicated``).
 """
 from __future__ import annotations
 
@@ -26,6 +37,8 @@ import torch
 from ..fields import radiance as radf
 from ..fields import sdf as sdf_mod
 from ..geometry import lie, transforms as T
+from ..parallel import distributed as pdist
+from ..parallel import mesh as pmesh
 from ..rendering import renderer as ren_mod
 from . import losses as L
 from . import optim as optim_mod
@@ -81,15 +94,24 @@ def render_core(params, cfgs: PhaseCfgs, gen: Optional[torch.Generator],
     tracing camera needs no sync).
     ``rays_idx`` [n_rays] replaces the random draw of the rays,
     ``trace_cam`` (an int) the draw of the tracing camera.
-    Returns dict of losses/metrics plus 'normals', 'mask_bg'.
+    Under an active data group the per-camera ray count is rounded up to
+    a multiple of the ranks, and each rank keeps its rows of the rays
+    (axis 1 of [C,R,3]) and of the tracing rows.
+    Returns dict of losses/metrics (each loss this rank's part of the
+    global value) plus 'normals', 'mask_bg', 'ray_real' and 'ray_rows'
+    (the valid rows of a sharded batch, else None).
     """
     dev = poses.device
     C = poses.shape[0]
     HW = cfgs.H * cfgs.W
-    n_rays = min(max(cfgs.rand_rays // C, 1), HW)
+    n_rays = max(cfgs.rand_rays // C, 1)
+    world = pmesh.world_size()
+    if world > 1:
+        n_rays = -(-n_rays // world) * world
+    n_rays = min(n_rays, HW)
     if rays_idx is None:
         rays_idx = torch.randperm(HW, generator=gen)[:n_rays]
-    rays_idx = torch.as_tensor(rays_idx, device=dev)
+    rays_idx, rows = pmesh.shard_rows(torch.as_tensor(rays_idx, device=dev))
     n_rays = rays_idx.shape[0]
     centers, rays = T.get_center_and_ray(poses, intr, grid[rays_idx])  # [C,R,3]
     rgbs_gt = images[:, rays_idx]
@@ -104,24 +126,36 @@ def render_core(params, cfgs: PhaseCfgs, gen: Optional[torch.Generator],
         if cam_j is None:
             cam_j = int(torch.randint(0, C if n_real is None else n_real, (),
                                       generator=gen))
-        tc = tracing["center"][cam_j]
-        tray = tracing["ray"][cam_j]
-        txyz = tracing["xyz"][cam_j]
-        tmask = tracing["mask"][cam_j]
+        tc, t_rows = pmesh.shard_rows(tracing["center"][cam_j])
+        tray, _ = pmesh.shard_rows(tracing["ray"][cam_j])
+        txyz, _ = pmesh.shard_rows(tracing["xyz"][cam_j])
+        tmask, _ = pmesh.shard_rows(tracing["mask"][cam_j])
         all_c = torch.cat([flat_c, tc], 0)[None]
         all_d = torch.cat([flat_r, tray], 0)[None]
     else:
         all_c = flat_c[None]
         all_d = flat_r[None]
+    march_rows = None
+    if rows is not None:
+        march_rows = rows[None].expand(C, n_rays).reshape(-1)
+        if tracing is not None:
+            tmask = tmask & t_rows
+            march_rows = torch.cat([march_rows, t_rows], 0)
 
-    march = sdf_mod.sphere_march(params["sdf"], cfgs.sdf, all_c, all_d)
+    stop_count = None
+    if march_rows is not None:
+        # the march stops when no valid ray of any rank is unfinished
+        def stop_count(unf):
+            return pdist.global_sum([(unf & march_rows).sum()])[0]
+    march = sdf_mod.sphere_march(params["sdf"], cfgs.sdf, all_c, all_d,
+                                 stop_count=stop_count)
 
     if tracing is not None:
         m_tr = sdf_mod.march_slice(march, n_dc, None)
         _, sdf_surf_tr, _, pts_surf_tr = sdf_mod.sphere_reeval(
             params["sdf"], cfgs.sdf, m_tr, tc[None], tray[None])
         tdist = L.safe_norm(txyz - pts_surf_tr[0], dim=-1)
-        out["tracing_loss"] = L.masked_mean(tdist, tmask)
+        out["tracing_loss"] = L.masked_mean(tdist, tmask, sharded=True)
         out["sdfs_traced"] = sdf_surf_tr
         out["tmask"] = tmask
     else:
@@ -144,29 +178,33 @@ def render_core(params, cfgs: PhaseCfgs, gen: Optional[torch.Generator],
     mask_bg = (mean_gt < 0.95) & (mean_gt > 0.05)
     ray_real = (torch.ones((C, n_rays), dtype=torch.bool, device=dev)
                 if cam_mask is None else cam_mask[:, None].expand(C, n_rays))
+    if rows is not None:
+        ray_real = ray_real & rows[None]
     mask_bg = mask_bg & ray_real
     mask_fin = mask_finish & mask_bg
 
     dc_elem = L.smooth_l1(d_points[..., 0], depth_mlp[..., 0])
-    dc = L.masked_mean(dc_elem, mask_fin)
-    dc = torch.where(mask_fin.sum() > 0, dc, torch.zeros_like(dc))
+    dc = L.masked_mean(dc_elem, mask_fin, sharded=True)
+    dc = torch.where(L.count(mask_fin, sharded=True) > 0, dc, torch.zeros_like(dc))
     if cfgs.dc_unfinish_weight is not None:
         rgb_err = torch.abs(rgb - rgbs_gt).mean(dim=-1).detach()
         w_dc = torch.exp(-100.0 * rgb_err)
         dc_unf = L.masked_mean(
             w_dc * L.smooth_l1(d_points[..., 0], depth_mlp[..., 0].detach()),
-            (~mask_fin) & ray_real)
+            (~mask_fin) & ray_real, sharded=True)
         dc = dc + cfgs.dc_unfinish_weight * n_valid * dc_unf
 
-    rgb_loss = (L.l1(rgb, rgbs_gt) if cam_mask is None
-                else L.masked_mean(torch.abs(rgb - rgbs_gt).mean(dim=-1), ray_real))
+    rgb_loss = (L.l1(rgb, rgbs_gt) if cam_mask is None and rows is None
+                else L.masked_mean(torch.abs(rgb - rgbs_gt).mean(dim=-1), ray_real,
+                                   sharded=True))
     out.update(
         rgb_loss=rgb_loss,
         DC_loss=dc,
-        PSNR=L.psnr(rgb, rgbs_gt, mask_bg),
+        PSNR=L.psnr(rgb, rgbs_gt, mask_bg, sharded=True),
         normals=ren["normals"],
         mask_bg=mask_bg,
         ray_real=ray_real,
+        ray_rows=None if rows is None else ray_real,
     )
     return out
 
@@ -193,21 +231,33 @@ def guarded_update(opt: optim_mod.PhaseAdam, grads: List[torch.Tensor]):
     return 1.0 - ok.to(torch.float32)
 
 
-def descend(opt: optim_mod.PhaseAdam, total: torch.Tensor):
+def descend(opt: optim_mod.PhaseAdam, total: torch.Tensor, sharded=False):
     """Gradient of ``total`` w.r.t. the optimizer's leaves (zero where a
-    leaf does not reach it), applied through ``guarded_update``."""
+    leaf does not reach it), applied through ``guarded_update``. Under an
+    active data group the gradients are first summed over the ranks
+    (``sharded``: each rank's total is its part of the global loss) or
+    replaced by rank 0's (a phase every rank runs in full), so that every
+    rank makes the same update."""
     grads = torch.autograd.grad(total, opt.leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(opt.leaves, grads)]
+    if sharded:
+        grads = pdist.all_reduce_grads(grads)
+    else:
+        grads = pmesh.replicate(grads)
     return guarded_update(opt, grads)
 
 
-def step_metrics(loss, metrics, total, bad) -> Dict[str, torch.Tensor]:
+def step_metrics(loss, metrics, total, bad, sharded=False) -> Dict[str, torch.Tensor]:
     """A step's detached metrics: the loss terms, ``all`` and
-    ``nonfinite`` beside the phase's own."""
+    ``nonfinite`` beside the phase's own. ``sharded``: the loss terms and
+    ``all`` are the ranks' parts, summed here in one all-reduce (the
+    phase's own metrics are global values already)."""
     out = {k: v.detach() for k, v in metrics.items()}
-    out.update({k: v.detach() for k, v in loss.items()})
-    out["all"] = total.detach()
+    vals = pdist.global_sum(list(loss.values()) + [total]) if sharded else [
+        v.detach() for v in list(loss.values()) + [total]]
+    out.update(zip(loss, vals[:-1]))
+    out["all"] = vals[-1]
     out["nonfinite"] = bad
     return out
 
@@ -226,10 +276,13 @@ def _trainable(params, keys):
 
 
 def eikonal_from_normals(normals, mask=None):
+    """Mean | |n| - 1 | over render_core's normals [C,R,K,3]; ``mask``
+    [C,R] selects rays (of a sharded batch: the global mean)."""
     n = L.safe_norm(normals, dim=-1)
     if mask is None:
         return L.l1(n, torch.ones_like(n))
-    return L.masked_mean(torch.abs(n - 1.0), mask[..., None].expand(n.shape))
+    return L.masked_mean(torch.abs(n - 1.0), mask[..., None].expand(n.shape),
+                         sharded=True)
 
 
 class InitPhase:
@@ -269,14 +322,16 @@ class InitPhase:
                                   batch["proj_pose"][1][None], intr)
         uv = torch.stack([uv0[0], uv1[0]], 0)                    # [2,N,2]
         re = L.safe_norm(uv - batch["kp_src"], dim=-1)
-        loss = {"reproj_error": L.masked_mean(re, batch["kp_mask"])}
+        # the keypoint terms: every rank traces every keypoint
+        loss = {"reproj_error": L.replicated(L.masked_mean(re, batch["kp_mask"]))}
         sdf_surf = tr.sdf_surf.reshape(2, -1)
-        loss["sdf_surf"] = L.masked_mean(torch.abs(sdf_surf), batch["kp_mask"])
+        loss["sdf_surf"] = L.replicated(
+            L.masked_mean(torch.abs(sdf_surf), batch["kp_mask"]))
 
         rc = render_core(params, cfgs, gen, batch["poses"], batch["intr"],
                          batch["images"], batch["grid"], occ=batch.get("occ"),
                          rays_idx=rays_idx)
-        loss["eikonal_loss"] = eikonal_from_normals(rc["normals"])
+        loss["eikonal_loss"] = eikonal_from_normals(rc["normals"], rc["ray_rows"])
         loss["rgb"] = rc["rgb_loss"]
         loss["DC_Loss"] = rc["DC_loss"]
         return loss, {"PSNR": rc["PSNR"]}
@@ -286,7 +341,8 @@ class InitPhase:
         loss, metrics = self._losses(state["params"], batch, gen,
                                      rays_idx=rays_idx)
         total = L.weighted_total(loss, self.weights)
-        return step_metrics(loss, metrics, total, descend(state["opt"], total))
+        return step_metrics(loss, metrics, total,
+                            descend(state["opt"], total, sharded=True), sharded=True)
 
     def run(self, state, batch, gen, n_iters=None):
         """``n_iters`` steps; returns (state, {metric: [n_iters] tensor})."""
@@ -466,10 +522,12 @@ class BAPhase:
                     "pose_t": lr_pose_t}
 
     def init_state(self, params, xyzs):
+        """``xyzs`` [P,3]: the track points; under an active data group
+        the state carries this rank's rows (``fetch_host`` gathers them)."""
         _trainable(params, [k for k, lab in self.label_of.items()
                             if lab != optim_mod.FROZEN])
         opt = optim_mod.PhaseAdam(params, self.label_of, self.lrs, self.gamma)
-        return {"params": params, "opt": opt, "xyzs": xyzs}
+        return {"params": params, "opt": opt, "xyzs": pmesh.shard_rows(xyzs)[0]}
 
     def _losses(self, params, xyzs, batch, gen, rays_idx=None, trace_cam=None):
         cfgs = self.cfgs
@@ -478,22 +536,30 @@ class BAPhase:
         xyzs_new, normals_value = sdf_mod.get_surface_pts(params["sdf"], cfgs.sdf,
                                                           xyzs)
         sdfs = sdf_mod.infer_sdf(params["sdf"], cfgs.sdf, xyzs_new)[..., 0]
-        poses_fwd = lie.se3_to_SE3(se3[batch["pose_idx"]])                # [P,3,4]
+        # this rank's track rows (xyzs are carried sharded in the state)
+        pose_idx, _ = pmesh.shard_rows(batch["pose_idx"])
+        kp, _ = pmesh.shard_rows(batch["kp"])
+        valid, rows = pmesh.shard_rows(batch["valid"])
+        if rows is not None:
+            valid = valid & rows
+        poses_fwd = lie.se3_to_SE3(se3[pose_idx])                         # [P,3,4]
         uv, _ = project_points_per(xyzs_new, poses_fwd, batch["intr"])
-        r = L.safe_norm(uv - batch["kp"], dim=-1)
-        valid = batch["valid"]
+        r = L.safe_norm(uv - kp, dim=-1)
         mask_surf = (torch.abs(sdfs) < 2 * thr) & valid
         mask_ok = mask_surf & torch.isfinite(r)
         robust = 0.5 * (2 * torch.log(1 + r ** 2 / 4)) + 0.5 * r
-        reproj_loss = torch.where(mask_surf.sum() > 0,
-                                  L.masked_mean(robust, mask_ok), 0.0)
+        n_surf = L.count(mask_surf, sharded=True)
+        reproj_loss = torch.where(n_surf > 0,
+                                  L.masked_mean(robust, mask_ok, sharded=True), 0.0)
         loss = {"reproj_error": reproj_loss,
-                "sdf_surf": L.masked_mean(torch.abs(sdfs), valid)}
-        metrics = {"reproj_px": L.masked_mean(r, mask_ok),
-                   "pts3d_ratio": mask_surf.sum() / torch.clamp(valid.sum(), min=1)}
+                "sdf_surf": L.masked_mean(torch.abs(sdfs), valid, sharded=True)}
+        metrics = {"reproj_px": L.global_value(
+                       L.masked_mean(r, mask_ok, sharded=True)),
+                   "pts3d_ratio": n_surf / torch.clamp(
+                       L.count(valid, sharded=True), min=1)}
         if self.mode == "sfm":
             loss["eikonal_loss"] = L.masked_mean(
-                torch.abs(normals_value[..., 0] - 1.0), valid)
+                torch.abs(normals_value[..., 0] - 1.0), valid, sharded=True)
         else:
             pose_input = lie.se3_to_SE3(se3)
             if not self.single_cam:
@@ -523,7 +589,8 @@ class BAPhase:
         loss, metrics, xyzs_new = self._losses(state["params"], state["xyzs"],
                                                batch, gen, rays_idx, trace_cam)
         total = self.objective(loss, metrics)
-        out = step_metrics(loss, metrics, total, descend(state["opt"], total))
+        out = step_metrics(loss, metrics, total,
+                           descend(state["opt"], total, sharded=True), sharded=True)
         # the carried points: a non-finite projection keeps the old point
         xyzs_new = xyzs_new.detach()
         fin = torch.isfinite(xyzs_new).all(dim=-1, keepdim=True)
@@ -569,7 +636,8 @@ class RefinePhase:
             "DC_Loss": rc["DC_loss"],
             "tracing_loss": rc["tracing_loss"],
             # refine's sdf_surf acts on the traced keypoints' sdf
-            "sdf_surf": L.masked_mean(torch.abs(rc["sdfs_traced"]), rc["tmask"]),
+            "sdf_surf": L.masked_mean(torch.abs(rc["sdfs_traced"]), rc["tmask"],
+                                      sharded=True),
         }
         return loss, {"PSNR": rc["PSNR"]}
 
@@ -577,7 +645,8 @@ class RefinePhase:
         loss, metrics = self._losses(state["params"], batch, gen, rays_idx,
                                      trace_cam)
         total = L.weighted_total(loss, self.weights)
-        return step_metrics(loss, metrics, total, descend(state["opt"], total))
+        return step_metrics(loss, metrics, total,
+                            descend(state["opt"], total, sharded=True), sharded=True)
 
     def run(self, state, batch, gen, n_iters=None):
         return run_steps(self, state, batch, gen, n_iters)

@@ -15,7 +15,12 @@ restored checkpoint rebuilds the scene (``_reload_scene``) and the run
 goes on from there. Each view's row goes to ``metrics.jsonl`` with the
 JAX package's keys; ``freq.vis`` dumps per-view artifacts, and the end of
 the run writes the point cloud, cameras and viewer page and, when the
-scene has GT depth, the depth evaluation. Under the ``ba_trad``
+scene has GT depth, the depth evaluation. Under data-parallel ranks
+(``parallel``) every rank runs the engine: the phases shard their rows,
+and the host decisions (the next view, PnP, the guards) are made on
+rank 0 and broadcast, with rank 0's scene taken by every rank after the
+init, PnP, geoinit and each view (``entities.sync_scene``); only rank 0
+writes files. Under the ``ba_trad``
 ablation a view's BA is one local and one global ``TradBundler`` (free
 points, reprojection only) and nothing more; unlike the JAX package,
 which returns before its metrics row there, the view's row is written.
@@ -32,6 +37,7 @@ import torch
 from .. import resolve_device
 from ..fields import radiance as radf
 from ..fields import sdf as sdf_mod
+from ..parallel import distributed as pdist
 from ..rendering import renderer as ren_mod
 from ..utils import checkpoint as ckpt_mod
 from ..utils.obs import HOST_TIMERS, Log, MetricRecorder, PhaseTimers
@@ -174,6 +180,7 @@ class LevelSfM:
         if self.cam_info_reloaded is None:
             self.params = self.initializer.run(self.params, self.next_key(),
                                                verbose=verbose)
+            entities.sync_scene(self.camera_set, self.point_set)
 
     def select_next_view(self, pose_graph_left, verbose=True) -> int:
         """NBV: colmap order, or the PnP inlier score of every candidate
@@ -234,8 +241,8 @@ class LevelSfM:
         px_min = float(g.get("px_min", 2.0))
         post = entities.mean_reprojection_px(self.camera_set, self.point_set,
                                              cam_ids)
-        diverged = (not np.isfinite(post)) or (
-            np.isfinite(pre) and post > max(factor * pre, px_min))
+        diverged = pdist.broadcast_object((not np.isfinite(post)) or (
+            np.isfinite(pre) and post > max(factor * pre, px_min)))
         if diverged:
             entities.restore_geometry(self.camera_set, self.point_set, snap)
             self.params = params_pre
@@ -249,8 +256,8 @@ class LevelSfM:
         """If any field parameter went non-finite, revert to the copy
         taken before the phase. Returns True when healthy."""
         from .optim import tree_leaves
-        ok = bool(torch.stack([torch.isfinite(p).all()
-                               for p in tree_leaves(self.params)]).all())
+        ok = pdist.broadcast_object(bool(torch.stack(
+            [torch.isfinite(p).all() for p in tree_leaves(self.params)]).all()))
         if not ok:
             print(f"WARNING: [field-guard] non-finite field params after "
                   f"{label}; reverting to pre-phase params")
@@ -275,10 +282,12 @@ class LevelSfM:
         camera_new = self._make_camera(new_id)
         reg = Registration(opt, self.cfgs, self.camera_set)
         reg_cfg = opt.get("registration", {})
-        ok, ratio, num = timed("pnp", lambda: reg.pnp(
+        ok, ratio, num = timed("pnp", lambda: pdist.on_primary(lambda: reg.pnp(
             self.params, camera_new, self.point_set, if_nbv=True,
             min_inliers=int(reg_cfg.get("min_inliers", 0)),
-            min_inlier_ratio=float(reg_cfg.get("min_inlier_ratio", 0.0))))
+            min_inlier_ratio=float(reg_cfg.get("min_inlier_ratio", 0.0)))))
+        reg.src_cam_id = pdist.broadcast_object(reg.src_cam_id)
+        entities.sync_scene(self.camera_set, self.point_set, [camera_new])
         row["pnp_inliers"], row["pnp_ratio"] = num, ratio
         self.camera_set.eval_poses(verbose=verbose)
         if not ok:
@@ -290,6 +299,7 @@ class LevelSfM:
             self.params, camera_new, self.point_set, self.next_key(),
             verbose=verbose))
         self._finite_params_or_revert("geo_init", params_pre)
+        entities.sync_scene(self.camera_set, self.point_set)
         row["triangulated"] = getattr(reg, "tri_ratio", [0, 0])
         self._probe("geo_init", reg)
         src_cam_id = reg.src_cam_id
@@ -373,6 +383,7 @@ class LevelSfM:
     def _log_view(self, row, reproj) -> bool:
         """Complete a registered view's row with the pose errors, keep it
         in ``view_log`` and write it to the metrics."""
+        entities.sync_scene(self.camera_set, self.point_set)
         r_deg, t_err, ate = self.camera_set.eval_poses(verbose=False)
         row.update(n_cams=len(self.camera_set), n_points=len(self.point_set),
                    reproj_px=reproj, rot_err_deg=r_deg, t_err=t_err, ate=ate)
@@ -432,7 +443,8 @@ class LevelSfM:
                 self.skipped_views = sorted(left)
                 self.metrics.log(self.it, skipped_views=sorted(left))
                 break
-            new_id = self.select_next_view(eligible, verbose=verbose)
+            new_id = pdist.on_primary(
+                lambda: self.select_next_view(eligible, verbose=verbose))
             print(f"-------------the best view next id is {new_id}--------------")
             if not self.register_view(new_id, verbose=verbose):
                 fail_counts[new_id] = fail_counts.get(new_id, 0) + 1
@@ -454,9 +466,9 @@ class LevelSfM:
     def _view_artifacts(self, view_id: int):
         """Per-view artifacts at ``freq.vis``: point cloud, cameras, a
         coarse mesh, and a render of the view when ``freq.vis_render`` is
-        set. A failure is reported and the run goes on."""
+        set (rank 0). A failure is reported and the run goes on."""
         out = self.opt.get("output_path", None)
-        if not out:
+        if not out or not pdist.is_primary():
             return
         try:
             from ..utils import export as export_mod
@@ -490,7 +502,9 @@ class LevelSfM:
     def _final_artifacts(self, verbose=True):
         """End of the run: the GT-depth evaluation when the scene has GT
         depth, the point cloud, cameras and viewer page, and the timing
-        summaries. A failure is reported and the run goes on."""
+        summaries (rank 0). A failure is reported and the run goes on."""
+        if not pdist.is_primary():
+            return
         if self.var is not None and self.var.get("depth_gt") is not None \
                 and len(self.camera_set) >= 2:
             try:

@@ -15,7 +15,9 @@ entry, readable with ``allow_pickle=False``:
   layout (``sfm/optstate.py``), with its label in the manifest.
 
 A save writes ``<path>.<pid>.tmp`` and renames it into place, so a
-reader never sees a half-written file. Version 2 (a
+reader never sees a half-written file. Under data-parallel ranks rank 0
+writes and every rank waits for it (a barrier); every rank reads.
+Version 2 (a
 pickle whose leaves are numpy arrays) is still read; version 1 pickled a
 JAX treedef, which only the JAX package can rebuild, and raises here.
 """
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel import distributed as pdist
 
 
 def _tree_paths(params):
@@ -82,8 +85,10 @@ def save_checkpoint_sfm(path: str, params, cameraset, pointset,
                         it: int = 0, extra: Optional[dict] = None):
     from .obs import HOST_TIMERS
     with HOST_TIMERS.track("host_checkpoint"):
-        return _save_checkpoint_sfm(path, params, cameraset, pointset,
-                                    it=it, extra=extra)
+        if pdist.is_primary():
+            _save_checkpoint_sfm(path, params, cameraset, pointset,
+                                 it=it, extra=extra)
+        pdist.barrier()
 
 
 def _save_checkpoint_sfm(path, params, cameraset, pointset, it, extra):

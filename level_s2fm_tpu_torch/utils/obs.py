@@ -6,7 +6,8 @@ and only if ``torch.utils.tensorboard`` imports), ``PhaseTimers`` and the
 module-level ``HOST_TIMERS`` / ``TIMERS``. The JAX package's
 ``CompileCounter`` (XLA compile buckets) and ``jax_trace`` have no
 counterpart: the port compiles nothing per shape, and device time is read
-with ``torch.profiler`` (``chip_smoke.py``).
+with ``torch.profiler`` (``chip_smoke.py``). Under data-parallel ranks
+only rank 0 logs and writes metric files; the timers stay per rank.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import json
 import os
 import time
 from typing import Dict, Optional
+
+from ..parallel import distributed as pdist
 
 
 class Log:
@@ -26,7 +29,7 @@ class Log:
 
     @classmethod
     def _emit(cls, level, *msg):
-        if not cls.enabled:
+        if not cls.enabled or not pdist.is_primary():
             return
         color = cls._COLORS.get(level, "")
         print(f"{color}[{level}]{cls._END}", *msg, flush=True)
@@ -52,6 +55,8 @@ class MetricRecorder:
     """Append-only JSONL scalar history + in-memory rows."""
 
     def __init__(self, path: Optional[str] = None, tb_dir: Optional[str] = None):
+        if not pdist.is_primary():
+            path = tb_dir = None
         self.path = path
         self.history = []
         self._tb = None

@@ -40,6 +40,7 @@ from level_s2fm_tpu_torch.config import build_options
 from level_s2fm_tpu_torch.fields import sdf as tsdf
 from level_s2fm_tpu_torch.sfm import bundle as tbundle
 from level_s2fm_tpu_torch.sfm import optim as toptim
+from level_s2fm_tpu_torch.sfm import optstate as tos
 from level_s2fm_tpu_torch.sfm import phases as tphases
 
 from torch_port_helpers import TINY_ARGS, two_view_state
@@ -152,6 +153,8 @@ def test_rendering_steps_match(state, mode):
     n_rays = min(tm.cfgs.rand_rays // C, HW)
     for i in range(3):
         key = jax.random.PRNGKey(20 + i)
+        if mode == "sfm_refine" and i == 2:
+            _start_from_jax(ts, js)
         js, jmet = jphase.step(js, jbatch, key)
         tmet = tphase.step(ts, tbatch, None,
                            **_render_draws(key, HW, n_rays, tbatch["n_real"]))
@@ -165,10 +168,102 @@ def test_rendering_steps_match(state, mode):
         _poses_match(ts, js, 5e-4)
 
 
+def _start_from_jax(ts, js):
+    """Give the port's phase state the JAX side's: parameters, carried
+    points and Adam moments (the flat optax leaves, through
+    ``optstate``). Adam turns a last-bit difference in a hash-table
+    entry whose gradient is at rounding level into a whole step of +-lr,
+    so after two free-running steps the two sides no longer run the
+    same function from the same state; this step compares them from
+    one state."""
+    with torch.no_grad():
+        for a, b in zip(toptim.tree_leaves(ts["params"]),
+                        jax.tree.leaves(js["params"])):
+            a.copy_(torch.as_tensor(np.array(b)))
+        ts["xyzs"] = torch.as_tensor(np.array(js["xyzs"]))
+    n_adopted = len(tos.ADOPTED)
+    tos.reset()
+    tos.load("step2", [np.array(x) for x in jax.tree.leaves(js["opt"])])
+    tos.adopt("step2", ts["opt"])
+    tos.reset()
+    assert tos.ADOPTED[n_adopted:] == [("step2", len(jax.tree.leaves(js["opt"])))]
+    assert ts["opt"].count == 2
+
+
 def _poses_match(ts, js, atol):
     for k in ("se3_r", "se3_t"):
         np.testing.assert_allclose(ts["params"][k].detach().numpy(),
                                    np.asarray(js["params"][k]), rtol=0, atol=atol)
+
+
+def test_sfm_refine_step_two_ranks_matches_the_jax_mesh(state):
+    """One ``BAPhase('sfm_refine')`` step of the port at world 2 (gloo
+    ranks as threads: each keeps half of the rays and of the track rows)
+    against the JAX package's step under a 2-device ``('data',)`` mesh,
+    from the same state and draws: the bars of step 0 above, and the two
+    ranks end bit for bit equal."""
+    from level_s2fm_tpu.parallel import mesh as jpmesh
+    from level_s2fm_tpu_torch.parallel import distributed as tpdist
+    jm, tm = state
+    jb, js, tb, ts = _bundlers(state, [1], "sfm_refine")
+    jbatch, tbatch = dict(jb.batch), dict(tb.batch)
+    jbatch["occ"] = jbundle.maybe_build_occ(jm.opt, jm.cfgs, js["params"])
+    tbatch["occ"] = tbundle.maybe_build_occ(tm.opt, tm.cfgs, ts["params"])
+    C, HW = tbatch["images"].shape[:2]
+    key = jax.random.PRNGKey(20)
+    draws = _render_draws(key, HW, min(tm.cfgs.rand_rays // C, HW),
+                          tbatch["n_real"])
+    # a fresh trace: the phase's jit would reuse a trace made without the mesh
+    step = jax.jit(lambda s_, b_, k_: jb.phase._step_impl(s_, b_, k_))
+    with jpmesh.use_mesh(jpmesh.make_mesh(2)):
+        js, jmet = step(js, jbatch, key)
+    assert len(js["xyzs"].sharding.device_set) == 2       # the tracks were sharded
+
+    def rank(r):
+        st = tb.phase.init_state(_tree_to(ts["params"], "cpu"), tb.xyzs0.clone())
+        return tb.phase.step(st, tbatch, None, **draws), st
+
+    (met0, st0), (met1, st1) = tpdist.launch_threads(rank, 2)
+    _check_metrics(met0, jmet, 0)
+    _poses_match(st0, js, 1e-6)
+    for a, b in zip(toptim.tree_leaves(st0["params"]),
+                    toptim.tree_leaves(st1["params"])):
+        assert torch.equal(a, b)
+    assert all(torch.equal(met0[k], met1[k]) for k in met0)
+
+
+@pytest.mark.parametrize("grads", ["identical", "drawn"])
+def test_phase_adam_is_adam_stacked_to_the_last_bit(grads):
+    """``PhaseAdam``'s float32 rounding: five updates equal
+    ``jit(adam_stacked(...).update)``'s (through the JAX package's phase
+    optimizer: per-label lr, the shared gamma) to 0 ulp, for one
+    gradient repeated and for fresh gradients, of magnitudes 1e-6..10."""
+    from level_s2fm_tpu.sfm import optim as joptim
+    rng = np.random.default_rng(5)
+
+    def draw(shapes):
+        return {k: {n: (10.0 ** rng.uniform(-6, 1, sh) * rng.choice([-1, 1], sh))
+                    .astype(np.float32) for n, sh in d.items()}
+                for k, d in shapes.items()}
+
+    shapes = {"sdf": {"table": (3, 700), "w": (16,)}, "rad": {"w": (300,)}}
+    p0 = draw(shapes)
+    gamma = joptim.decay_gamma(1e-3, 1e-4, 500)
+    labels, lrs = {"sdf": "sdf", "rad": "color"}, {"sdf": 1e-3, "color": 1e-2}
+    tx = joptim.make_phase_optimizer(p0, labels, lrs, gamma)
+    st = tx.init(jax.tree.map(jnp.asarray, p0))
+    opt = toptim.PhaseAdam({k: {n: torch.tensor(v) for n, v in d.items()}
+                            for k, d in p0.items()}, labels, lrs, gamma)
+    update = jax.jit(tx.update)
+    g = draw(shapes)
+    for _ in range(5):
+        if grads == "drawn":
+            g = draw(shapes)
+        ju, st = update(jax.tree.map(jnp.asarray, g), st)
+        tu = opt.updates([torch.tensor(x) for x in jax.tree.leaves(g)])
+        for a, b in zip(tu, jax.tree.leaves(ju)):
+            np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                          np.asarray(b).view(np.int32))
 
 
 def test_frozen_label_gets_no_moments_and_no_update():

@@ -267,15 +267,18 @@ def test_cli_writes_options_metrics_and_results(tmp_path, monkeypatch):
     assert png.read_png(str(out / "render_cam0.png")).shape == (16, 16, 3)
 
 
-@pytest.mark.parametrize("yaml_name,value,cards,refused", [
-    ("scannet_multiroom", "2", 1, True), ("scannet_multiroom", None, 2, True),
-    ("scannet_multiroom", None, 1, False), ("scannet_multiroom", "1", 8, False),
-    ("synthetic", None, 8, False)])
-def test_data_devices_beyond_one_are_refused(yaml_name, value, cards, refused,
+@pytest.mark.parametrize("yaml_name,value,cards,world", [
+    ("scannet_multiroom", "2", 1, None), ("scannet_multiroom", None, 2, 2),
+    ("scannet_multiroom", None, 1, 1), ("scannet_multiroom", "1", 8, 1),
+    ("synthetic", None, 8, 1)])
+def test_data_devices_beyond_one_are_refused(yaml_name, value, cards, world,
                                              tmp_path, monkeypatch):
-    """``parallel.data_devices`` asking for more than one device raises
-    before any data is loaded or any file written; empty (configs/base.yaml),
-    1 and ``all`` on one card (configs/scannet_multiroom.yaml) pass."""
+    """``parallel.data_devices`` as ``train.data_devices`` resolves it:
+    asking for more GPUs than are visible raises before any data is
+    loaded or any file written (``world`` None); ``all``
+    (configs/scannet_multiroom.yaml) is one rank per visible GPU, over
+    NCCL; empty (configs/base.yaml), 1, and ``all`` on one card are one
+    rank with no process group."""
     import torch
     from level_s2fm_tpu_torch import train
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
@@ -287,10 +290,20 @@ def test_data_devices_beyond_one_are_refused(yaml_name, value, cards, refused,
     expect = value or ("all" if yaml_name == "scannet_multiroom" else None)
     got = opt.parallel.data_devices
     assert (str(got) if got is not None else None) == expect
-    if refused:
+    if world is None:
         monkeypatch.setattr(train, "build_var", lambda o: pytest.fail("data loaded"))
         with pytest.raises(ValueError, match="parallel.data_devices"):
             train.main(argv)
         assert not out.exists()
+        # under --cpu the same value is that many gloo ranks on the CPU
+        assert train.data_devices(tbuild(argv + ["--cpu"])) == ["cpu"] * int(value)
+        return
+    devices = train.data_devices(opt)
+    if world == 1:
+        assert devices is None
     else:
-        train.check_data_devices(opt)
+        assert devices == [f"cuda:{i}" for i in range(world)]
+        from level_s2fm_tpu_torch.parallel import distributed as pdist
+        assert pdist.default_backend(devices) == "nccl"
+    # `all` under --cpu is the one CPU
+    assert train.data_devices(tbuild(argv + ["--cpu"])) is None
