@@ -3,9 +3,13 @@
 
     python3 chip_smoke.py [--determinism]
 
-``--determinism`` adds two measurements to phases init, register and
-prepared (see below); the smoke itself takes no arguments. Imports nothing of JAX and nothing of the JAX package. Phases (any
-failure raises and exits non-zero):
+``--determinism`` times the render phases' steady steps three ways
+(phases init and register, below); the smoke itself takes no arguments. Imports nothing of JAX and nothing of the JAX package. Phases (any
+failure raises and exits non-zero), run in the order 1-6, 9, then 7, 8,
+14, 10, 11, 13, 15 and 12: phases 1-6 and 9 alone on the card; from
+phase 7 on, three side processes (``start_checks``) run the checks whose
+walls are not read (phase prepared's second engine, phase parallel's
+(b) and (c)) beside the phases, and phase 12 (a) runs alone after them:
 
 1. build — the CUDA kernels (``level_s2fm_tpu_torch/csrc/*.cu``, one nvcc
    per source, started together) and the host libraries minigeom and
@@ -35,9 +39,10 @@ failure raises and exits non-zero):
    128 samples compacted to 32, occupancy 64^3, 20 march steps, geoinit
    max_rays 2048) on 128x128 images, with the step count cut to
    ``INIT_STEPS``. Losses must be finite and the rgb loss must fall.
-   With ``--determinism`` it also prints the steady ms per step with
-   and without ``torch.use_deterministic_algorithms``, from the same
-   parameters.
+   With ``--determinism`` it also prints the steady ms per step three
+   ways, from the same parameters: with the ordered scatter (the port),
+   with ``index_add_``'s float atomics (the smoke's own switch, not the
+   package's) and under ``torch.use_deterministic_algorithms``.
 6. register — the second main path: the same model goes on to register
    view 3 (``REGISTER_VIEWS``; ``sfm_mode: full``: PnP, geoinit, one
    single-camera sfm_refine BA, up to 5 local and 5 global BA cycles, refine). Depth
@@ -48,13 +53,14 @@ failure raises and exits non-zero):
    the wall s per stage; then, on copies of the final state, the steady
    ms per step and the device-busy share of each phase (with
    ``--determinism``, GeoInitPhase, BAPhase ``sfm_refine`` and
-   RefinePhase also with and without deterministic algorithms, from the
-   same parameters); then K1/K2 are held to their plain versions at
+   RefinePhase also the three ways of phase init, from the same
+   parameters); then K1/K2 are held to their plain versions at
    every shape the run launched.
 7. bands — the 3-view ``--sfm_mode=fast`` run at
-   ``configs/synthetic.yaml`` as it stands, under
-   ``torch.use_deterministic_algorithms`` so that its verdict repeats
-   from run to run; each final value must be
+   ``configs/synthetic.yaml`` as it stands, twice from the same seed,
+   back to back: the two runs must be equal bit for bit (every camera's se3, the point
+   count, the final row: the ordered scatter sums the hash grid's table
+   cotangent in a fixed order); each final value must be
    within 2x of the known-good values (reproj 0.315 px, rot 6.0 deg, t
    0.018), and the relative rotations within the E2E oracles (views 0-1
    < 5 deg, 0-2 < 8 deg).
@@ -70,8 +76,7 @@ failure raises and exits non-zero):
    with a mapper log must give the log's order. Prints the seconds of
    each render.
 9. prepared — the third main path, through the port's CLI entry
-   (``train.main``) on a prepared scene, under
-   ``torch.use_deterministic_algorithms``: ``configs/synthhard_r5.yaml`` as
+   (``train.main``) on a prepared scene: ``configs/synthhard_r5.yaml`` as
    it stands (data/synthhard/scan1 through the port's loaders: 200x200,
    SIFT matches, the widths of ``configs/levels2fm.yaml``, init 400,
    geoinit 60 x 5, BA 400) in ``--sfm_mode=fast``, as the JAX package's
@@ -80,12 +85,13 @@ failure raises and exits non-zero):
    (``results/synthhard_r5_metrics.jsonl``): the same view, reproj < 1 px
    and within 2x, t_err and ate within 2x, the rotation within 2x from 5
    cameras up (the Procrustes fit of 3-4 near-collinear centres is
-   ill-conditioned). With ``--determinism`` a second engine then runs
-   the init and the first view again, and its row must repeat the first
-   one bit for bit. Then a fresh engine resumes from ``model.ckpt``,
+   ill-conditioned). A second engine runs the init and the first view
+   again in a side process after this phase, and its row must repeat
+   the first one bit for bit. Then a fresh engine resumes from
+   ``model.ckpt``,
    must adopt the saved optimizer moments and registers the sixth view
    under the same bars; then ``--get_result --refine_again`` refines
-   every camera (200 steps, K1/K2) and exports the results, each file
+   every camera (``REFINE_AGAIN_ITERS`` steps, K1/K2) and exports the results, each file
    checked (mesh > 1000 faces with median |SDF| at its vertices below a
    grid spacing, ``render_cam0.png`` finite, its PSNR printed). K1/K2 are
    held at every shape the phase launched. Prints the per-view stage
@@ -106,19 +112,23 @@ failure raises and exits non-zero):
    translation errors within 2x of the JAX package's values for the same
    command, taken over its rounding spread (``TRAD_SPREAD``, from
    ``trad_spread.py``); it renders nothing, so K1/K2 do not launch.
-   (b) ``polish_trad_ba`` (``--cycles=1 --iters=1500``) on the six-view
+   (b) ``polish_trad_ba`` (``--cycles=1 --iters=1000``) on the six-view
    checkpoint phase prepared leaves: the mean reprojection error must
    fall and the ATE must not rise; prints each cycle's errors and wall
    time. (c) one ``tri_trad``-only run of the synthetic scene in
-   ``full`` mode (DLT triangulation with the SDF post-fit, then
+   ``full`` mode, BA and refine cut to 75 and 50 steps (DLT triangulation with the SDF post-fit, then
    sfm_refine, BA and refine), where K1/K2 launch.
 
-12. parallel — data-parallel ranks through ``parallel.distributed.launch``
+12. parallel — (b) and (c) run in the side processes that start after
+   phase prepared and go on beside phases bands to demo (the card and
+   the host shared: their walls are not timings); (a) runs alone at the
+   end. Data-parallel ranks through
+   ``parallel.distributed.launch``
    (the path ``train.main`` takes): ``PARALLEL_RANKS`` ranks, which
    share the one card over gloo (CUDA tensors staged through the host),
    or one rank per card over NCCL where that many cards are visible.
    (a) One init step at phase init's full width from the seed's
-   parameters and draws, under deterministic algorithms: every loss
+   parameters and draws: every loss
    within 1e-6 relative and every parameter within 1e-5 of one rank's,
    the ranks bit for bit equal; then the steady ms per step at one rank
    and at the ranks, and the ms of one all-reduce of the gradients.
@@ -126,8 +136,8 @@ failure raises and exits non-zero):
    package's 1-vs-8-device bounds (``WORLD_BOUNDS``, points within
    max(8, 15%)) of phase bands' one-rank values. (c)
    ``configs/scannet_multiroom_synth.yaml`` (``MULTIROOM_ARGS``: fast, 3
-   views, its init and BA cut, its geoinit as it stands), under
-   deterministic algorithms: its init at one rank, then view 3 from that
+   views, its init and BA cut, its geoinit as it stands): its init at
+   one rank, then view 3 from that
    checkpoint at one rank and at the ranks: both register it with the
    BA under 1 px, the ranks' final values within ``WORLD_BOUNDS`` of one
    rank's (the rotation by the relative rotations of the camera pairs
@@ -136,13 +146,37 @@ failure raises and exits non-zero):
    K1/K2 launch in every rank; their counts are summed over the ranks
    and every shape launched is held to the plain versions.
 
+13. ab — ``python -m level_s2fm_tpu_torch.ab_adaptive_sampler`` at its
+   full width (128x128, 2048 rays) with ``AB_STEPS`` steps an arm: the
+   rays/s, held-out PSNR and train seconds of each arm beside the card's
+   name and power limit; K1/K2 launch in arm ``uniform128+occ32`` and
+   are held at its shapes.
+14. diag — ``python -m level_s2fm_tpu_torch.diag_frontier_pnp`` on the
+   checkpoint phase prepared leaves (6 of 32 views registered): a row
+   for every unregistered view with pairs >= gated >= every inlier
+   count; its ``--cpu`` run gives the same pairs and gated counts.
+15. demo — ``python -m level_s2fm_tpu_torch.two_view_init_demo`` at its
+   default ``--iters 200``: the pose errors and the eight files written.
+
+After phase kernels, hold_scatter holds the ordered scatter
+(``csrc/hash_scatter.cu``) at the main path's shapes (16.8 M
+contributions of the full-width hash grid; its coarse dense level 0
+alone; the occupancy compaction's gather backward): bit for bit the
+CPU's plain version (the same order), within ``SCATTER_RTOL`` of a row's
+sum of |contributions| of ``index_add_``'s atomics on the card, three
+calls bitwise equal; then timed beside ``index_add_`` (plain) and
+``index_put_`` with accumulate (library). At the end it is held the same
+way at every (rows, features) it launched on the main paths.
+
 Phase reference also holds one InitPhase step and one
 ``BAPhase('rad_init')`` step under ``OPTION_SWITCHES`` (tiny widths) to
 the CPU's plain versions, and every shape K1/K2 launched in phases
 options and ablations is held against the plain versions.
 
 Each main path is driven with the launch counts set to 0 just before it
-and read just after; K1 and K2 must have launched in each.
+and read just after; K1, K2 and the ordered scatter must have launched
+in each (the trad run of phase ablations renders nothing: there the
+scatter alone; phase diag trains nothing and launches none).
 
 The last lines of stdout are the card's name and power limit, the
 kernels' JSON line and ``{"ok": true, "device": {...}}``.
@@ -199,8 +233,9 @@ PREPARED_ARGS = ["--yaml=" + os.path.join(REPO, "configs", "synthhard_r5.yaml"),
 PREPARED_ROWS = os.path.join(REPO, "results", "synthhard_r5_metrics.jsonl")
 #: views registered before the checkpoint, and after the resume
 PREPARED_VIEWS, RESUMED_VIEWS = 5, 6
-#: the refine over every camera before the export
-REFINE_AGAIN_ITERS = 200
+#: the refine over every camera before the export (cut to make room for
+#: the later phases)
+REFINE_AGAIN_ITERS = 100
 #: a row's reproj / t_err / ate may reach this factor of the JAX row's;
 #: the Procrustes rotation too, from PREPARED_ROT_MIN_CAMS cameras up
 PREPARED_FACTOR, PREPARED_ROT_MIN_CAMS = 2.0, 5
@@ -211,9 +246,9 @@ OPTION_SWITCHES = ["--Ablate_config.dual_field", "--SDF.VolSDF.volsdf_sampling",
                    "--SDF.Hash_config.paired_dense",
                    "--SDF.VolSDF.reeval_compact=0.5",
                    "--SDF.VolSDF.march_compact=0.25"]
-#: init steps of the options phase (phase init's INIT_STEPS, cut to 30 to
-#: make room for phase parallel)
-OPTION_STEPS = 30
+#: init steps of the options phase (phase init's INIT_STEPS, cut to 20 to
+#: make room for phases parallel, ab, diag and demo)
+OPTION_STEPS = 20
 #: the ablations phase's trad run: configs/synthetic.yaml as it stands
 TRAD_ARGS = ["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
              "--sfm_mode=fast", "--Ablate_config.tri_trad",
@@ -235,19 +270,21 @@ TRAD_SPREAD = {"median": {"reproj_px": 0.03955, "rot_err_deg": 0.085826668888330
                "max": {"reproj_px": 0.046, "rot_err_deg": 0.7703208923339844,
                        "t_err": 0.0003573574067559093}}
 TRAD_FACTOR = 2.0
-#: the pose polish of the prepared run: the first of the two cycles
-#: results/synthhard_r5.md ran, to leave phase parallel its time
-POLISH_ARGS = ["--cycles=1", "--iters=1500"]
+#: the pose polish of the prepared run: one cycle of the two
+#: results/synthhard_r5.md ran, and 1000 of its 1500 steps, to leave the
+#: later phases their time
+POLISH_ARGS = ["--cycles=1", "--iters=1000"]
 #: DLT triangulation under the neural BA and refine: configs/synthetic.yaml
-#: in full mode
+#: in full mode, its BA and refine cut from 150 and 100 steps to 75 and 50
 TRI_TRAD_ARGS = ["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
-                 "--Ablate_config.tri_trad"]
+                 "--Ablate_config.tri_trad", "--optim.ba.max_iter=75",
+                 "--optim.refine.max_iter=50"]
 
 
 #: phase parallel: the data-parallel ranks held against one rank
 PARALLEL_RANKS = 2
 #: (a) steady init steps timed at each world
-PARALLEL_STEADY_STEPS = 5
+PARALLEL_STEADY_STEPS = 3
 #: (a) one step at PARALLEL_RANKS ranks against one: every loss to this
 #: relative error, every parameter to this absolute one
 PARALLEL_LOSS_RTOL, PARALLEL_PARAM_ATOL = 1e-6, 1e-5
@@ -258,7 +295,7 @@ PARALLEL_LOSS_RTOL, PARALLEL_PARAM_ATOL = 1e-6, 1e-5
 WORLD_BOUNDS = {"rot_err_deg": 4.0, "t_err": 5e-3, "ate": 5e-3, "reproj_px": 5e-2}
 #: (c) configs/scannet_multiroom_synth.yaml as it stands (24 views of
 #: data/scannet/multiroom0 at 192x192, the widths of configs/levels2fm.yaml),
-#: fast mode, 3 views, deterministic algorithms; its init 500 and BA 2000
+#: fast mode, 3 views; its init 500 and BA 2000
 #: steps cut to 300 and 200 to fit the time limit, its geoinit (100 steps)
 #: as it stands. At that depth view 3's BA ends under 1 px at one rank, so
 #: the local and the global BA each stop after one cycle; with geoinit 20
@@ -284,6 +321,42 @@ MULTIROOM_MAX_REPROJ_PX = 1.0
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _reset_counts():
+    """Every kernel's launch count set to 0: K1/K2 and the ordered scatter."""
+    from level_s2fm_tpu_torch.fields import hash_scatter as hs
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    fc.reset_launches()
+    hs.reset_launches()
+
+
+def _read_counts():
+    """{"fwd", "bwd", "scatter"}: the launches since ``_reset_counts``."""
+    from level_s2fm_tpu_torch.fields import hash_scatter as hs
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    return {**fc.LAUNCHES, "scatter": hs.LAUNCHES["scatter"]}
+
+
+def _scatter_shapes():
+    """The ordered scatter's launches by (n, m, F) since ``_reset_counts``."""
+    from level_s2fm_tpu_torch.fields import hash_scatter as hs
+    return dict(hs.SHAPES)
+
+
+def _wait_for(path, timeout_s=900.0):
+    """Waits until ``path`` exists (a marker another process writes)."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        assert time.perf_counter() - t0 < timeout_s, f"no {path} after {timeout_s} s"
+        time.sleep(1.0)
+
+
+def _row_text(row):
+    """A metrics row as comparable text, without its wall times."""
+    import numpy as np
+    return {k: json.dumps(v, default=lambda o: np.asarray(o).tolist())
+            for k, v in row.items() if k != "stage_s"}
 
 
 def _out_dir(phase):
@@ -405,11 +478,11 @@ def phase_kernels(main_shape):
     recs = [
         {"name": "laplace_composite_fwd", "route": "cuda", "source": src,
          "replaces": f"{ref}:118 (_fwd_kernel, launched at :209)",
-         "max_abs_err": err["fwd"], "ms": kept[0], "plain_ms": t_plain["fwd"],
+         "launches": 0, "max_abs_err": err["fwd"], "ms": kept[0], "plain_ms": t_plain["fwd"],
          "bound_ms": fwd_b, "bound_by": fwd_by, "library_ms": None},
         {"name": "laplace_composite_bwd", "route": "cuda", "source": src,
          "replaces": f"{ref}:135 (_bwd_kernel, launched at :267)",
-         "max_abs_err": err["bwd"], "ms": kept[2], "plain_ms": t_plain["bwd"],
+         "launches": 0, "max_abs_err": err["bwd"], "ms": kept[2], "plain_ms": t_plain["bwd"],
          "bound_ms": bwd_b, "bound_by": bwd_by, "library_ms": None},
     ]
     log(f"[kernels] main path R={R} K={K} (no single PyTorch call computes "
@@ -418,6 +491,144 @@ def phase_kernels(main_shape):
         f"plain ms " + json.dumps(t_plain)
         + f", empty-kernel floor {floor_ms:.6f} ms")
     return recs
+
+
+# --------------------------------------------------------------------------- ordered scatter
+
+#: the ordered scatter's inputs at the main path's shape: the hash-grid
+#: corners of one ray_chunk call of the init's render (2 cameras x 2048
+#: rays x 32 compacted samples = 131,072 points, x 16 levels x 8 corners =
+#: 16.8 M contributions into the 16 x 2^19 rows of configs/levels2fm.yaml),
+#: drawn on a shell around the synthetic scene's sphere; the coarse dense
+#: level 0 alone (17^3 rows, the longest segments); and the occupancy
+#: compaction's gather backward (K = 32 of 128 samples a ray, one column)
+SCATTER_POINTS = 131072
+#: the ordered scatter against index_add_'s atomics on the card: the
+#: largest |difference| of a row over that row's sum of |contributions|
+#: (the order of a float sum moves it by a few ulp of that sum)
+SCATTER_RTOL = 1e-6
+
+
+#: the ordered scatter's launches by (n, m, F) on this process's main
+#: paths, filled in as they run; held at the end
+SCATTER_SEEN = {}
+#: rows of the hash grid's coarse dense level 0 at the main width (17^3)
+COARSE_ROWS = 17 ** 3
+
+
+def scatter_at_shapes(shapes, dev, seed=1):
+    """(name, (gi, g, m)) for every (n, m, F) in ``shapes``, with keys
+    drawn at random on the card (not the launched ones): half of the
+    contributions on the first ``COARSE_ROWS`` rows (a coarse dense
+    level's long segments), half anywhere, shuffled."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for n, m, F in sorted(shapes):
+        half = n // 2
+        gi = torch.cat([
+            torch.randint(0, min(m, COARSE_ROWS), (half,), generator=gen, device=dev),
+            torch.randint(0, m, (n - half,), generator=gen, device=dev)])
+        gi = gi[torch.randperm(n, generator=gen, device=dev)]
+        yield f"n={n} m={m} F={F}", (gi, torch.randn(n, F, generator=gen, device=dev), m)
+
+
+def scatter_inputs(dev, points=SCATTER_POINTS, seed=0):
+    """{name: (gi, g, m)} at the shapes of ``SCATTER_POINTS``'s note."""
+    import torch
+    from level_s2fm_tpu_torch.config import build_options
+    from level_s2fm_tpu_torch.fields import hashgrid
+    cfg = hashgrid.config_from_opt(build_options(FULL_WIDTH_ARGS))
+    gen = torch.Generator().manual_seed(seed)
+    d = torch.randn(points, 3, generator=gen)
+    r = 0.5 + 0.02 * torch.randn(points, 1, generator=gen)
+    x_unit = (d / d.norm(dim=-1, keepdim=True) * r + 1.0) / 2.0
+    idx, _ = hashgrid.corner_indices(x_unit.to(dev), cfg)
+    T, F = cfg.table_size, cfg.n_features_per_level
+    gi = hashgrid.flat_indices(idx, T)
+    cases = {"main": (gi, torch.randn(gi.numel(), F, generator=gen).to(dev),
+                      cfg.n_levels * T)}
+    gi0 = idx[0].reshape(-1)
+    cases["level0"] = (gi0, torch.randn(gi0.numel(), F, generator=gen).to(dev), T)
+    R, S, K = 2 * 2048, 128, 32
+    col = torch.sort(torch.randint(0, S, (R, K), generator=gen), dim=-1).values
+    gt = (col + torch.arange(R)[:, None] * S).reshape(-1)
+    cases["take_along"] = (gt.to(dev), torch.randn(R * K, 1, generator=gen).to(dev), R * S)
+    return cases
+
+
+def hold_scatter(cases, tag="hold_scatter"):
+    """The ordered scatter on the card against its plain version on the
+    CPU (bit for bit: the same order), against ``index_add_`` on the card
+    (``SCATTER_RTOL``), and against itself (three calls bitwise equal).
+    Returns the largest |difference| from the CPU's plain version."""
+    import torch
+    from level_s2fm_tpu_torch.fields import hash_scatter as hs
+    worst = 0.0
+    for name, (gi, g, m) in cases.items():
+        runs = [hs.scatter_cuda(gi, g, m) for _ in range(3)]
+        atomic = hs.scatter_plain(gi, g, m)
+        mag = hs.scatter_plain(gi, g.abs(), m)
+        torch.cuda.synchronize()
+        cpu = hs.scatter_plain(gi.cpu(), g.cpu(), m)
+        repeat = all(torch.equal(runs[0], x) for x in runs[1:])
+        err_cpu = float((runs[0].cpu() - cpu).abs().max())
+        same_cpu = torch.equal(runs[0].cpu(), cpu)
+        rel = float(((runs[0] - atomic).abs() / mag.clamp_min(1e-30)).max())
+        seg = torch.bincount(gi, minlength=m)
+        log(f"[{tag}] {name}: {gi.numel()} contributions into {m} rows x "
+            f"{g.shape[1]}, {int((seg > 0).sum())} rows hit, longest segment "
+            f"{int(seg.max())}; bitwise equal to the CPU's plain version="
+            f"{same_cpu} (max_abs_err {err_cpu:.3e}); against index_add_ on "
+            f"the card {rel:.3e} of a row's sum of |contributions| (bar "
+            f"{SCATTER_RTOL}); three calls bitwise equal={repeat}")
+        assert same_cpu, (name, err_cpu)
+        assert rel <= SCATTER_RTOL, (name, rel)
+        assert repeat, name
+        worst = max(worst, err_cpu)
+        del runs, atomic, mag, cpu, seg
+    return worst
+
+
+def time_scatter(gi, g, m):
+    """ms of the ordered scatter (sort + kernel), of its parts, of
+    index_add_ (plain) and of index_put_ with accumulate (library), and
+    its bound; returns the record's numbers."""
+    import torch
+    from level_s2fm_tpu_torch import devtime
+    from level_s2fm_tpu_torch.fields import hash_scatter as hs
+    n, F = g.shape
+    ms = devtime.time_ms(lambda: hs.scatter_cuda(gi, g, m), n=20)[0]
+    sort_ms = devtime.time_ms(lambda: torch.sort(gi.to(torch.int32), stable=True), n=20)[0]
+    sk, perm = torch.sort(gi.to(torch.int32), stable=True)
+    kernel_ms = devtime.time_ms(lambda: hs.segment_sum(sk, perm, g, m), n=20)[0]
+    plain_ms = devtime.time_ms(lambda: hs.scatter_plain(gi, g, m), n=20)[0]
+    library_ms = devtime.time_ms(lambda: torch.zeros(m, F, device=g.device).index_put_(
+        (gi,), g, accumulate=True), n=20)[0]
+    bound, by = devtime.bound_ms(n * 8 + n * F * 4 + m * F * 4, n * F)
+    log(f"[hold_scatter] main: ordered {ms:.4f} ms (sort {sort_ms:.4f}, kernel "
+        f"{kernel_ms:.4f}), index_add_ {plain_ms:.4f} ms, index_put_ "
+        f"accumulate {library_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+        f"{bound / ms:.1%} of it)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "sort_ms": sort_ms,
+            "kernel_ms": kernel_ms}
+
+
+def phase_hold_scatter():
+    """``hold_scatter`` at the main path's shapes, then timed; returns the
+    kernel's record (its launches are filled in from the main paths)."""
+    import torch
+    cases = scatter_inputs(torch.device("cuda"))
+    err = hold_scatter(cases)
+    t = time_scatter(*cases["main"])
+    del cases
+    torch.cuda.empty_cache()
+    return {"name": "ordered_scatter", "route": "cuda",
+            "source": "level_s2fm_tpu_torch/csrc/hash_scatter.cu",
+            "replaces": "none: no TPU kernel (the JAX package's table cotangent is "
+                        "XLA's transpose of level_s2fm_tpu/fields/hashgrid.py:190)",
+            "launches": 0, "max_abs_err": err, **{k: t[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
 
 def phase_adapter(B=2, HW=2048, K=32):
@@ -709,12 +920,11 @@ def phase_init(determinism=False):
     """The first main path: two-view init at full width. Returns (model,
     launch counts). Profiling runs on a copy of the parameters, so the
     model goes on to the register phase as the init left it. With
-    ``determinism`` the steady step is also timed with and without
-    deterministic algorithms."""
+    ``determinism`` the steady step is also timed three ways
+    (``_determinism_cost``)."""
     import numpy as np
     import torch
     from level_s2fm_tpu_torch.config import build_options
-    from level_s2fm_tpu_torch.rendering import fused_composite as fc
     from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
     from level_s2fm_tpu_torch.train import build_var
 
@@ -725,12 +935,13 @@ def phase_init(determinism=False):
     model.load_data(build_var(opt))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fc.reset_launches()
+    _reset_counts()
     t0 = time.perf_counter()
     model.train(max_views=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fc.LAUNCHES)
+    launches = _read_counts()
+    SCATTER_SEEN.update(_scatter_shapes())
 
     init = model.initializer
     m = init._metrics
@@ -817,12 +1028,13 @@ def phase_register(model, determinism=False):
     model.stage_hook = hook
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fc.reset_launches()
+    _reset_counts()
     t0 = time.perf_counter()
     ok = model.train(max_views=REGISTER_VIEWS, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fc.LAUNCHES)
+    launches = _read_counts()
+    SCATTER_SEEN.update(_scatter_shapes())
     shapes = {k: dict(v) for k, v in fc.SHAPES.items()}
     model.stage_hook = None
     assert ok, "a view failed to register"
@@ -855,8 +1067,8 @@ def _profile_register(model, probes, determinism):
     """Steady ms per step (synchronised) and device-busy share of
     GeoInitPhase, BAPhase('sfm'), BAPhase('sfm_refine') and RefinePhase,
     each on a copy of the final parameters with its last call's batch;
-    with ``determinism`` the render phases also with and without
-    deterministic algorithms."""
+    with ``determinism`` the render phases also three ways
+    (``_determinism_cost``)."""
     import torch
     from level_s2fm_tpu_torch.sfm import bundle
     out = {}
@@ -904,62 +1116,88 @@ def _profile_register(model, probes, determinism):
 # --------------------------------------------------------------------------- bands
 
 def phase_bands():
-    """The 3-view fast run at configs/synthetic.yaml as it stands, held
-    to 2x the known-good final values and to the E2E oracles."""
+    """The 3-view fast run at configs/synthetic.yaml as it stands, twice
+    from the same seed, back to back: the two runs must be equal bit for
+    bit (every camera's se3, the point count, the final row), and held to
+    2x the known-good final values and to the E2E oracles. Returns the
+    first run's values and the launch counts of both."""
     import numpy as np
-    import torch
-    from level_s2fm_tpu_torch.config import build_options
-    from level_s2fm_tpu_torch.geometry import lie
-    from level_s2fm_tpu_torch.rendering import fused_composite as fc
-    from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
-    from level_s2fm_tpu_torch.train import build_var
-
-    opt = build_options(["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
-                         "--sfm_mode=fast", "--output_path=" + _out_dir("bands")])
-    model = LevelSfM(opt, seed=int(opt.seed), device="cuda")
-    model.load_data(build_var(opt))
-    fc.reset_launches()
-    # one reproducible run: the hash grid's index_add_ backward sums in a
-    # fixed order (K1/K2 are deterministic already). With float atomics,
-    # runs of this seed spread 4.5-10.3 deg in the 3-camera Procrustes
-    # rotation on the H100, whose sim(3) fit is poorly conditioned
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        t0 = time.perf_counter()
-        ok = model.train(max_views=3, verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        torch.use_deterministic_algorithms(False)
-    assert ok and model.camera_set.cam_ids == [0, 1, 2], model.camera_set.cam_ids
-    rot, t_err, ate = model.camera_set.eval_poses(verbose=False)
-    got = {"reproj_px": model.view_log[-1]["reproj_px"], "rot_err_deg": rot,
-           "t_err": t_err}
-    poses, gt = model.camera_set.all_poses()
-    p, g = torch.as_tensor(poses), torch.as_tensor(gt)
-
-    def rel_deg(i, j):
-        rel = lie.pose_compose_pair(lie.pose_invert(p[i]), p[j])
-        rel_gt = lie.pose_compose_pair(lie.pose_invert(g[i]), g[j])
-        return float(np.rad2deg(float(lie.rotation_distance(rel_gt[:3, :3],
-                                                             rel[:3, :3]))))
-
-    rel = {"0-1": rel_deg(0, 1), "0-2": rel_deg(0, 2)}
-    log("[bands] " + json.dumps({"final": got, "ate": ate, "known_good": BANDS,
-                                 "factor": BANDS_FACTOR, "rel_rot_deg": rel,
-                                 "n_points": len(model.point_set),
-                                 "launches": dict(fc.LAUNCHES), "wall_s": wall,
-                                 "stage_s": model.view_log[-1]["stage_s"]}))
+    runs, launches = [], {"fwd": 0, "bwd": 0, "scatter": 0}
+    for name in ("bands", "bands_repeat"):
+        _reset_counts()
+        runs.append(_bands_run("cuda", _out_dir(name)))
+        counts = _read_counts()
+        SCATTER_SEEN.update(_scatter_shapes())
+        launches = {k: v + counts[k] for k, v in launches.items()}
+    a, b = runs
+    same = {"se3": bool(np.array_equal(a["se3"], b["se3"])),
+            "n_points": a["n_points"] == b["n_points"],
+            "row": a["row"] == b["row"]}
+    got = {k: a[k] for k in BANDS}
+    log("[bands] " + json.dumps({"final": got, "ate": a["ate"], "known_good": BANDS,
+                                 "factor": BANDS_FACTOR, "rel_rot_deg": a["rel_rot_deg"],
+                                 "n_points": a["n_points"], "launches": launches,
+                                 "wall_s": [r["wall_s"] for r in runs],
+                                 "stage_s": a["stage_s"],
+                                 "second_run_bitwise_equal": same}))
+    assert a["ok"] and a["cam_ids"] == [0, 1, 2], a["cam_ids"]
+    assert all(same.values()), (same, a["row"], b["row"])
     for k, v in BANDS.items():
         assert math.isfinite(got[k]) and got[k] <= BANDS_FACTOR * v, (k, got[k], v)
-    assert rel["0-1"] < 5.0 and rel["0-2"] < 8.0, rel
-    return {**got, "ate": ate, "n_points": len(model.point_set)}
+    assert a["rel_rot_deg"]["0-1"] < 5.0 and a["rel_rot_deg"]["0-2"] < 8.0, a["rel_rot_deg"]
+    assert all(v > 0 for v in launches.values()), launches
+    return {k: a[k] for k in ("reproj_px", "rot_err_deg", "t_err", "ate", "n_points")}, launches
 
 
-def _bands_run(device):
-    """The bands run (3 views of configs/synthetic.yaml, fast mode,
-    deterministic algorithms) on ``device``, under the active group;
-    returns its final values, relative rotations and wall s."""
+def _side_train(argv):
+    """``train.main(argv)`` in a side process: its rows (as text and as
+    they are), summary, poses, the init's step count and wall, its wall,
+    launches and launch shapes."""
+    import numpy as np
+    import torch
+    from level_s2fm_tpu_torch import train
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    _reset_counts()
+    t0 = time.perf_counter()
+    m = train.main(argv)
+    torch.cuda.synchronize()
+    init = m.initializer
+    return {"rows": [_row_text(r) for r in m.view_log], "view_log": m.view_log,
+            "summary": getattr(m, "summary", None), "se3": m.camera_set.all_se3(),
+            "pose_gt": np.stack([c.pose_gt for c in m.camera_set.cameras]),
+            "init_steps": len(init._metrics["all"]) if init is not None else None,
+            "init_wall": m.timers.totals.get("init"),
+            "wall_s": time.perf_counter() - t0, "launches": _read_counts(),
+            "shapes": {k: dict(v) for k, v in fc.SHAPES.items()},
+            "scatter_shapes": _scatter_shapes()}
+
+
+def _side_multiroom(marker):
+    """Phase parallel (c)'s one-rank part: the multiroom init (then
+    ``marker`` is written: its checkpoint is ready), then view 3 from its
+    checkpoint. Returns {"mr_init", "mr_view3"}, runs as ``_side_train``
+    gives them."""
+    init_dir = _out_dir("parallel_multiroom_init")
+    one = ["--parallel.data_devices=1"]
+    try:
+        init = _side_train(MULTIROOM_ARGS + one + ["--max_views=2",
+                                                   "--output_path=" + init_dir])
+    except BaseException:
+        with open(marker, "w") as f:
+            f.write("failed\n")
+        raise
+    with open(marker, "w") as f:
+        f.write("ready\n")
+    view3 = _side_train(MULTIROOM_ARGS + one + [
+        "--load=" + os.path.join(init_dir, "model.ckpt"),
+        "--output_path=" + _out_dir("parallel_multiroom_1")])
+    return {"mr_init": init, "mr_view3": view3}
+
+
+def _bands_run(device, out=os.path.join(REPO, "output", "chip_smoke", "parallel_bands")):
+    """The bands run (3 views of configs/synthetic.yaml, fast mode) on
+    ``device``, under the active group, into ``out``; returns its final
+    values, relative rotations, final row and wall s."""
     import numpy as np
     import torch
     from level_s2fm_tpu_torch.config import build_options
@@ -967,19 +1205,13 @@ def _bands_run(device):
     from level_s2fm_tpu_torch.sfm.pipeline import LevelSfM
     from level_s2fm_tpu_torch.train import build_var
     opt = build_options(["--yaml=" + os.path.join(REPO, "configs", "synthetic.yaml"),
-                         "--sfm_mode=fast",
-                         "--output_path=" + os.path.join(REPO, "output", "chip_smoke",
-                                                         "parallel_bands")])
+                         "--sfm_mode=fast", "--output_path=" + out])
     model = LevelSfM(opt, seed=int(opt.seed), device=device)
     model.load_data(build_var(opt))
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        t0 = time.perf_counter()
-        ok = model.train(max_views=3, verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        torch.use_deterministic_algorithms(False)
+    t0 = time.perf_counter()
+    ok = model.train(max_views=3, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     rot, t_err, ate = model.camera_set.eval_poses(verbose=False)
     poses, gt = model.camera_set.all_poses()
     p, g = torch.as_tensor(poses), torch.as_tensor(gt)
@@ -989,10 +1221,11 @@ def _bands_run(device):
         r_gt = lie.pose_compose_pair(lie.pose_invert(g[i]), g[j])
         rel[f"{i}-{j}"] = float(np.rad2deg(float(lie.rotation_distance(
             r_gt[:3, :3], r[:3, :3]))))
+    row = _row_text(model.view_log[-1])
     return {"ok": bool(ok), "cam_ids": list(model.camera_set.cam_ids),
             "reproj_px": model.view_log[-1]["reproj_px"], "rot_err_deg": rot,
             "t_err": t_err, "ate": ate, "n_points": len(model.point_set),
-            "rel_rot_deg": rel, "wall_s": wall,
+            "rel_rot_deg": rel, "wall_s": wall, "row": row,
             "stage_s": model.view_log[-1]["stage_s"], "se3": model.camera_set.all_se3()}
 
 
@@ -1165,13 +1398,13 @@ def _check_prepared_row(row, ref):
         assert row["rot_err_deg"] <= f * ref["rot_err_deg"], got
 
 
-def phase_prepared(determinism=False):
+def phase_prepared():
     """The third main path, through the port's CLI entry on the prepared
-    scene, under deterministic algorithms: five views with a checkpoint
-    after each, with ``determinism`` the init and first view once more in
-    a fresh engine (its row must repeat), a fresh engine that resumes and
-    registers the sixth, then ``--get_result`` with a refine over every
-    camera and the export. Returns (launch counts, launch shapes)."""
+    scene, alone on the card: five views with a checkpoint after each, a
+    fresh engine that resumes and registers the sixth, then
+    ``--get_result`` with a refine over every camera and the export.
+    Returns (launch counts, launch shapes, the first view's row as text
+    for ``check_prepared_repeat``)."""
     import numpy as np
     import torch
     from level_s2fm_tpu_torch import train
@@ -1188,27 +1421,24 @@ def phase_prepared(determinism=False):
     obs.HOST_TIMERS.totals.clear()
     obs.HOST_TIMERS.counts.clear()
     walls = {}
-    launches = {"fwd": 0, "bwd": 0}
+    launches = {"fwd": 0, "bwd": 0, "scatter": 0}
     shapes = {"fwd": {}, "bwd": {}}
 
     def run(name, argv):
-        fc.reset_launches()
+        _reset_counts()
         t0 = time.perf_counter()
-        # the rows judge parity against one committed JAX run: the hash
-        # grid's index_add_ backward sums in a fixed order, as in bands
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            m = train.main(argv)
-        finally:
-            torch.use_deterministic_algorithms(False)
+        m = train.main(argv)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
+        counts = _read_counts()
+        SCATTER_SEEN.update(_scatter_shapes())
         for k in launches:
-            launches[k] += fc.LAUNCHES[k]
+            launches[k] += counts[k]
+        for k in shapes:
             for s, n in fc.SHAPES[k].items():
                 shapes[k][s] = shapes[k].get(s, 0) + n
         log(f"[prepared] {name}: {walls[name]:.1f} s, launches "
-            + json.dumps(fc.LAUNCHES) + " by (R, K) "
+            + json.dumps(counts) + " by (R, K) "
             + json.dumps({k: {f"{R}x{K}": n for (R, K), n in v.items()}
                           for k, v in fc.SHAPES.items()}))
         return m
@@ -1235,23 +1465,7 @@ def phase_prepared(determinism=False):
     del m
     torch.cuda.empty_cache()
 
-    if determinism:
-        # 1b. the init and the first view again, in a fresh engine of the
-        # same call: under deterministic algorithms the row must repeat
-        m = run("repeat", PREPARED_ARGS + [
-            "--output_path=" + _out_dir("prepared_repeat"), "--max_views=3"])
-
-        def as_text(row):
-            return {k: json.dumps(v, default=lambda o: np.asarray(o).tolist())
-                    for k, v in row.items() if k != "stage_s"}
-        first, second = as_text(rows[0]), as_text(m.view_log[0])
-        differing = {k: [first[k], second.get(k)] for k in first
-                     if first[k] != second.get(k)}
-        log("[prepared] first-view row repeated within the call: " + json.dumps(
-            {"repeats": not differing, "differing": differing}))
-        assert not differing, differing
-        del m
-        torch.cuda.empty_cache()
+    first_row = _row_text(rows[0])
 
     # 2. a fresh engine resumes from model.ckpt and registers the next view;
     # the first phase of the saved label adopts the saved moments
@@ -1310,8 +1524,24 @@ def phase_prepared(determinism=False):
         "extract_mesh_high_res_ms": mean_ms["export_mesh"],
         "render_full_image_ms": mean_ms["export_render"],
         "export_results_ms": mean_ms["export_results"]}))
-    assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
-    return launches, shapes
+    assert all(v > 0 for v in launches.values()), launches
+    return launches, shapes, first_row
+
+
+def check_prepared_repeat(first_row, rep):
+    """A second engine's init and first view of phase prepared (run by
+    ``_side_train`` in the checks' side process): its row must repeat the
+    first engine's bit for bit. Returns (its launch counts, launch
+    shapes)."""
+    second = rep["rows"][0]
+    differing = {k: [first_row[k], second.get(k)] for k in first_row
+                 if first_row[k] != second.get(k)}
+    log("[prepared] first-view row repeated by a second engine: " + json.dumps(
+        {"repeats": not differing, "differing": differing,
+         "launches": rep["launches"]}))
+    assert not differing, differing
+    SCATTER_SEEN.update(rep["scatter_shapes"])
+    return rep["launches"], rep["shapes"]
 
 
 # --------------------------------------------------------------------------- options
@@ -1343,12 +1573,13 @@ def phase_options(init_summary):
     assert (cfg.rad.dual_field and cfg.ren.volsdf_sampling and cfg.sdf.grid.paired_dense
             and cfg.sdf.reeval_compact == 0.5 and cfg.sdf.march_compact == 0.25)
     torch.cuda.synchronize()
-    fc.reset_launches()
+    _reset_counts()
     t0 = time.perf_counter()
     model.train(max_views=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fc.LAUNCHES)
+    launches = _read_counts()
+    SCATTER_SEEN.update(_scatter_shapes())
     shapes = {k: dict(v) for k, v in fc.SHAPES.items()}
     init = model.initializer
     m = init._metrics
@@ -1432,7 +1663,7 @@ def phase_ablations():
     from level_s2fm_tpu_torch.rendering import fused_composite as fc
 
     # (a) DLT triangulation + classic BA; nothing is rendered
-    fc.reset_launches()
+    _reset_counts()
     t0 = time.perf_counter()
     m = train.main(TRAD_ARGS + ["--max_views=3", "--output_path=" + _out_dir("trad")])
     torch.cuda.synchronize()
@@ -1447,11 +1678,14 @@ def phase_ablations():
         "factor": TRAD_FACTOR,
         "ratio_to_jax": {k: got[k] / v for k, v in TRAD_KNOWN.items()},
         "n_points": len(m.point_set), "median_abs_radius_err": med, "wall_s": wall,
-        "stage_s": m.view_log[-1]["stage_s"], "launches": dict(fc.LAUNCHES)}))
+        "stage_s": m.view_log[-1]["stage_s"], "launches": _read_counts()}))
     assert len(m.point_set) > 30 and med < 0.1, (len(m.point_set), med)
     for k, v in TRAD_SPREAD["max"].items():
         assert math.isfinite(got[k]) and got[k] <= TRAD_FACTOR * v, (k, got[k], v)
     assert fc.LAUNCHES == {"fwd": 0, "bwd": 0}, fc.LAUNCHES
+    trad_scatter = _read_counts()["scatter"]
+    assert trad_scatter > 0, "the ordered scatter did not launch in the trad run"
+    SCATTER_SEEN.update(_scatter_shapes())
     del m
 
     # (b) global trad BA cycles on phase prepared's six-view checkpoint
@@ -1468,13 +1702,15 @@ def phase_ablations():
     torch.cuda.empty_cache()
 
     # (c) DLT triangulation under the neural BA and refine (full mode)
-    fc.reset_launches()
+    _reset_counts()
     t0 = time.perf_counter()
     m = train.main(TRI_TRAD_ARGS + ["--max_views=3",
                                     "--output_path=" + _out_dir("tri_trad_full")])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fc.LAUNCHES)
+    launches = _read_counts()
+    SCATTER_SEEN.update(_scatter_shapes())
+    launches["scatter"] += trad_scatter
     shapes = {k: dict(v) for k, v in fc.SHAPES.items()}
     assert m.camera_set.cam_ids == [0, 1, 2] and not m.skipped_views, m.camera_set.cam_ids
     row = m.view_log[-1]
@@ -1552,32 +1788,55 @@ def _layer_split(model, state, batch, n=5):
     return out
 
 
+def _atomic_scatter():
+    """A context in which the hash grid's table cotangent is summed by
+    ``index_add_`` with the card's float atomics (the port's version
+    before the ordered scatter): the smoke's own switch for
+    ``--determinism``'s comparison; the package has none."""
+    import contextlib
+    from level_s2fm_tpu_torch.fields import hash_scatter as hs
+
+    @contextlib.contextmanager
+    def ctx():
+        kept = hs.ordered_scatter_add
+        hs.ordered_scatter_add = hs.scatter_plain
+        try:
+            yield
+        finally:
+            hs.ordered_scatter_add = kept
+    return ctx()
+
+
 def _determinism_cost(phase, make_state, batch, seed, n=10):
-    """Steady ms per step of ``phase`` without and with
-    ``torch.use_deterministic_algorithms``, each from a fresh state of the
-    same parameters (``make_state()``): 2 warm-up steps, then ``n`` timed
-    (synchronised)."""
+    """Steady ms per step of ``phase`` three ways, each from a fresh
+    state of the same parameters (``make_state()``): with the ordered
+    scatter (the port), with ``index_add_``'s atomics, and under
+    ``torch.use_deterministic_algorithms`` (with the ordered scatter);
+    2 warm-up steps, then ``n`` timed (synchronised)."""
+    import contextlib
     import torch
     out = {}
-    for det in (False, True):
-        torch.use_deterministic_algorithms(det, warn_only=True)
+    for name in ("ms", "ms_atomics", "ms_deterministic"):
+        ctx = _atomic_scatter() if name == "ms_atomics" else contextlib.nullcontext()
+        torch.use_deterministic_algorithms(name == "ms_deterministic", warn_only=True)
         try:
-            state = make_state()
-            gen = torch.Generator().manual_seed(seed)
-            for _ in range(2):
-                phase.step(state, batch, gen)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                phase.step(state, batch, gen)
-            torch.cuda.synchronize()
-            out["ms_deterministic" if det else "ms"] = (
-                (time.perf_counter() - t0) / n * 1e3)
+            with ctx:
+                state = make_state()
+                gen = torch.Generator().manual_seed(seed)
+                for _ in range(2):
+                    phase.step(state, batch, gen)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    phase.step(state, batch, gen)
+                torch.cuda.synchronize()
+                out[name] = (time.perf_counter() - t0) / n * 1e3
         finally:
             torch.use_deterministic_algorithms(False)
         del state
         torch.cuda.empty_cache()
-    out["ratio"] = out["ms_deterministic"] / out["ms"]
+    out["ratio_to_atomics"] = out["ms"] / out["ms_atomics"]
+    out["deterministic_ratio_to_atomics"] = out["ms_deterministic"] / out["ms_atomics"]
     return out
 
 
@@ -1626,7 +1885,7 @@ def _profile_steps(phase, state, batch, gen, n=3):
 
 def _init_step(device, steady_steps):
     """(a) at full width on ``device`` under the active group: one init
-    step from the seed's parameters and draws under deterministic
+    step from the seed's parameters and draws
     algorithms (its losses and parameters), then the steady ms per step
     over ``steady_steps`` more, and, under a group, the ms of one
     all-reduce of the step's gradients."""
@@ -1650,11 +1909,7 @@ def _init_step(device, steady_steps):
     batch = dict(init.batch)
     batch["occ"] = bundle.maybe_build_occ(opt, m.cfgs, state["params"])
     gen = torch.Generator().manual_seed(1)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        met = init.phase.step(state, batch, gen)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    met = init.phase.step(state, batch, gen)
     params = [p.detach().cpu().numpy() for p in tree_leaves(state["params"])]
     out = {"losses": {k: float(v) for k, v in met.items()}, "params": params,
            "digest": _digest(params)}
@@ -1679,39 +1934,100 @@ def _init_step(device, steady_steps):
     return out
 
 
-def _parallel_rank(multiroom_argv):
-    """One rank of phase parallel: (a) the init step, (b) the bands run,
-    (c) view 3 of configs/scannet_multiroom_synth.yaml from the one-rank
-    init's checkpoint through ``train._rank_run`` (the function
-    ``train.main`` launches), with the composite kernels' launches of
-    each part."""
+def _parallel_rank(parts, multiroom_argv=None, marker=None):
+    """One rank of phase parallel, running ``parts`` of: (a)
+    ``init_step``, the init step; (b) ``bands``, the bands run; (c)
+    ``multiroom``, view 3 of configs/scannet_multiroom_synth.yaml from
+    the one-rank init's checkpoint (once ``marker`` exists) through
+    ``train._rank_run`` (the function ``train.main`` launches); with the
+    kernels' launches of each part."""
     import torch
     from level_s2fm_tpu_torch import train
     from level_s2fm_tpu_torch.parallel import distributed as pdist
     from level_s2fm_tpu_torch.parallel import mesh as pmesh
     from level_s2fm_tpu_torch.rendering import fused_composite as fc
     group = pmesh.get_group()
-    out = {"rank": group.rank, "device": str(group.device), "launches": {}, "shapes": {}}
-
-    def part(name, fn):
-        fc.reset_launches()
-        out[name] = fn()
+    out = {"rank": group.rank, "device": str(group.device), "launches": {},
+           "shapes": {}, "scatter_shapes": {}}
+    run = {"init_step": lambda: _init_step(group.device, PARALLEL_STEADY_STEPS),
+           "bands": lambda: _bands_run(group.device),
+           "multiroom": lambda: train._rank_run(multiroom_argv)}
+    for name in parts:
+        if name == "multiroom":
+            _wait_for(marker)
+            with open(marker) as f:
+                assert f.read().strip() == "ready", "the one-rank multiroom init failed"
+        _reset_counts()
+        t0 = time.perf_counter()
+        out[name] = run[name]()
         torch.cuda.synchronize()
-        out["launches"][name] = dict(fc.LAUNCHES)
+        out[name]["wall_s"] = time.perf_counter() - t0
+        out["launches"][name] = _read_counts()
         out["shapes"][name] = {k: dict(v) for k, v in fc.SHAPES.items()}
+        out["scatter_shapes"].update(_scatter_shapes())
         pdist.barrier()
-
-    part("init_step", lambda: _init_step(group.device, PARALLEL_STEADY_STEPS))
-    if group.rank:
+    if group.rank and "init_step" in parts:
         out["init_step"]["params"] = None
-    part("bands", lambda: _bands_run(group.device))
+    return out
+
+
+def _parallel_devices():
+    """(devices, backend) of the ranks: one per card over NCCL where
+    PARALLEL_RANKS cards are visible, else all on card 0 over gloo."""
+    import torch
+    from level_s2fm_tpu_torch.parallel import distributed as pdist
+    n_gpu = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(PARALLEL_RANKS)] if n_gpu >= PARALLEL_RANKS
+               else ["cuda:0"] * PARALLEL_RANKS)
+    return devices, pdist.default_backend(devices)
+
+
+def _side_ranks(marker):
+    """Phase parallel's (b) and (c) at PARALLEL_RANKS ranks ((c) starts
+    once ``_side_multiroom`` has written ``marker``). Returns {"ranks",
+    "launch_s"}."""
+    from level_s2fm_tpu_torch.parallel import distributed as pdist
+    devices, backend = _parallel_devices()
+    argv2 = MULTIROOM_ARGS + [
+        "--load=" + os.path.join(REPO, "output", "chip_smoke", "parallel_multiroom_init",
+                                 "model.ckpt"),
+        "--output_path=" + _out_dir("parallel_multiroom_2")]
     t0 = time.perf_counter()
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    ranks = pdist.launch(_parallel_rank, devices, backend,
+                         args=(("bands", "multiroom"), argv2, marker))
+    return {"ranks": ranks, "launch_s": time.perf_counter() - t0}
+
+
+def start_checks():
+    """The runs that check a main path but whose walls are not read, in
+    three side processes (spawn; each loads the libraries this process
+    built) that share the card with the phases after phase prepared:
+    phase prepared's second engine (its init and first view), phase
+    parallel (c)'s one-rank runs, and (b) and (c) at the ranks. Returns
+    (pool, futures); ``finish_checks`` collects them."""
+    import multiprocessing
+    marker = os.path.join(_out_dir("checks"), "multiroom_init.ready")
+    os.makedirs(os.path.dirname(marker))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        3, mp_context=multiprocessing.get_context("spawn"))
+    futs = {"prepared_repeat": pool.submit(_side_train, PREPARED_ARGS + [
+                "--output_path=" + _out_dir("prepared_repeat"), "--max_views=3"]),
+            "multiroom": pool.submit(_side_multiroom, marker),
+            "ranks": pool.submit(_side_ranks, marker)}
+    return pool, futs
+
+
+def finish_checks(pool, futs):
+    """The results of ``start_checks``' runs (a run's failure is raised
+    here): {"prepared_repeat", "mr_init", "mr_view3", "ranks",
+    "launch_s"}."""
+    t0 = time.perf_counter()
     try:
-        part("multiroom", lambda: train._rank_run(multiroom_argv))
+        out = {"prepared_repeat": futs["prepared_repeat"].result(),
+               **futs["multiroom"].result(), **futs["ranks"].result()}
     finally:
-        torch.use_deterministic_algorithms(False)
-    out["multiroom"]["wall_s"] = time.perf_counter() - t0
+        pool.shutdown(cancel_futures=True)
+    log(f"[checks] waited {time.perf_counter() - t0:.1f} s for the side processes")
     return out
 
 
@@ -1726,13 +2042,15 @@ def _close(name, got, ref, bounds):
     assert n_ok, (name, got["n_points"], ref["n_points"])
 
 
-def phase_parallel(bands_ref):
+def phase_parallel(bands_ref, side):
     """Data-parallel ranks on the card (``parallel.distributed.launch``,
     the path ``train.main`` takes): with one visible GPU, PARALLEL_RANKS
     ranks share it over gloo; with more, one rank per card over NCCL.
-    (a) one full-width init step at the ranks against one rank (losses,
-    parameters, the ranks bitwise equal) and the steady ms per step at
-    each world; (b) the bands run at the ranks, held to the bands and to
+    (a) here, alone on the card: one full-width init step at the ranks
+    against one rank (losses, parameters, the ranks bitwise equal) and
+    the steady ms per step at each world. ``side`` holds the runs of
+    ``start_checks``, which went on beside the phases after phase
+    prepared: (b) the bands run at the ranks, held to the bands and to
     the 1-vs-8 bounds against phase bands' one rank; (c) the multiroom
     config's init at one rank, then its view 3 from that checkpoint at
     one rank and at the ranks, both under MULTIROOM_MAX_REPROJ_PX, held
@@ -1740,54 +2058,28 @@ def phase_parallel(bands_ref):
     over the ranks and the one-rank runs."""
     import numpy as np
     import torch
-    from level_s2fm_tpu_torch import train
     from level_s2fm_tpu_torch.parallel import distributed as pdist
     from level_s2fm_tpu_torch.rendering import fused_composite as fc
 
-    n_gpu = torch.cuda.device_count()
-    if n_gpu >= PARALLEL_RANKS:
-        devices = [f"cuda:{i}" for i in range(PARALLEL_RANKS)]
-    else:
-        devices = ["cuda:0"] * PARALLEL_RANKS
-    backend = pdist.default_backend(devices)
+    devices, backend = _parallel_devices()
     log(f"[parallel] {PARALLEL_RANKS} ranks on {devices} over {backend} "
-        f"({n_gpu} visible GPU(s))")
-
-    # one rank, in this process
-    fc.reset_launches()
+        f"({torch.cuda.device_count()} visible GPU(s))")
+    _reset_counts()
     one = _init_step(torch.device("cuda"), PARALLEL_STEADY_STEPS)
-    init_dir = _out_dir("parallel_multiroom_init")
-    walls = {}
-
-    def multiroom(name, argv):
-        t0 = time.perf_counter()
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            m = train.main(MULTIROOM_ARGS + argv + ["--parallel.data_devices=1"])
-        finally:
-            torch.use_deterministic_algorithms(False)
-        torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
-        return m
-
-    model = multiroom("init", ["--max_views=2", "--output_path=" + init_dir])
-    init_steps = len(model.initializer._metrics["all"])
-    init_wall = model.timers.totals.get("init")
-    load = ["--load=" + os.path.join(init_dir, "model.ckpt")]
-    model = multiroom("view3", load + ["--output_path=" + _out_dir("parallel_multiroom_1")])
-    multi1 = {"summary": model.summary, "view_log": model.view_log,
-              "se3": model.camera_set.all_se3(),
-              "pose_gt": np.stack([c.pose_gt for c in model.camera_set.cameras])}
-    launches = dict(fc.LAUNCHES)
+    launches = _read_counts()
     shapes = {k: dict(v) for k, v in fc.SHAPES.items()}
-    del model
-    torch.cuda.empty_cache()
-
-    argv2 = MULTIROOM_ARGS + load + ["--output_path=" + _out_dir("parallel_multiroom_2")]
-    t0 = time.perf_counter()
-    ranks = pdist.launch(_parallel_rank, devices, backend, args=(argv2,))
-    wall_launch = time.perf_counter() - t0
-    for r in ranks:
+    SCATTER_SEEN.update(_scatter_shapes())
+    ranks_a = pdist.launch(_parallel_rank, devices, backend, args=(("init_step",),))
+    mr_init, mr_view3, ranks = side["mr_init"], side["mr_view3"], side["ranks"]
+    for run in (mr_init, mr_view3):
+        SCATTER_SEEN.update(run["scatter_shapes"])
+        for k in launches:
+            launches[k] += run["launches"][k]
+        for k in shapes:
+            for sh, n in run["shapes"][k].items():
+                shapes[k][sh] = shapes[k].get(sh, 0) + n
+    for r in ranks_a + ranks:
+        SCATTER_SEEN.update(r["scatter_shapes"])
         for part in r["launches"].values():
             for k in launches:
                 launches[k] += part[k]
@@ -1795,25 +2087,26 @@ def phase_parallel(bands_ref):
             for k, v in part.items():
                 for shape, n in v.items():
                     shapes[k][shape] = shapes[k].get(shape, 0) + n
-
-    for r in ranks:
+    for r in ranks_a + ranks:
         for name in ("init_step", "bands"):
-            n = r["launches"][name]
-            assert n["fwd"] > 0 and n["bwd"] > 0, (r["rank"], name, n)
+            if name in r["launches"]:
+                n = r["launches"][name]
+                assert all(v > 0 for v in n.values()), (r["rank"], name, n)
+
     # (a)
-    r0 = ranks[0]["init_step"]
-    assert len({r["init_step"]["digest"] for r in ranks}) == 1, "ranks differ"
+    r0 = ranks_a[0]["init_step"]
+    assert len({r["init_step"]["digest"] for r in ranks_a}) == 1, "ranks differ"
     loss_err = {k: abs(r0["losses"][k] - v) / max(abs(v), 1e-30)
                 for k, v in one["losses"].items()}
     param_err = max(float(np.abs(a - b).max()) for a, b in zip(r0["params"], one["params"]))
-    log("[parallel] (a) init step at full width, deterministic: "
+    log("[parallel] (a) init step at full width: "
         + json.dumps({"loss_rel_err": loss_err, "param_max_abs_err": param_err,
                       "ranks_bitwise_equal": True,
                       "ms_per_step": {"1": one["ms_per_step"],
                                       str(PARALLEL_RANKS): r0["ms_per_step"]},
                       "allreduce_ms": r0["allreduce_ms"],
                       "allreduce_mib": r0["allreduce_mib"],
-                      "launches_per_rank": [r["launches"]["init_step"] for r in ranks]}))
+                      "launches_per_rank": [r["launches"]["init_step"] for r in ranks_a]}))
     for k, e in loss_err.items():
         assert e <= PARALLEL_LOSS_RTOL, (k, r0["losses"][k], one["losses"][k])
     assert param_err <= PARALLEL_PARAM_ATOL, param_err
@@ -1822,8 +2115,8 @@ def phase_parallel(bands_ref):
     b = ranks[0]["bands"]
     assert all(np.array_equal(r["bands"]["se3"], b["se3"]) for r in ranks)
     assert b["ok"] and b["cam_ids"] == [0, 1, 2], b["cam_ids"]
-    log("[parallel] (b) bands at the ranks: " + json.dumps(
-        {k: v for k, v in b.items() if k != "se3"}))
+    log("[parallel] (b) bands at the ranks, in the checks' side processes: "
+        + json.dumps({k: v for k, v in b.items() if k != "se3"}))
     for k, v in BANDS.items():
         assert math.isfinite(b[k]) and b[k] <= BANDS_FACTOR * v, (k, b[k], v)
     assert b["rel_rot_deg"]["0-1"] < 5.0 and b["rel_rot_deg"]["0-2"] < 8.0
@@ -1832,6 +2125,7 @@ def phase_parallel(bands_ref):
     # (c)
     c = ranks[0]["multiroom"]
     assert len({r["multiroom"]["params_digest"] for r in ranks}) == 1, "ranks differ"
+    multi1 = mr_view3
     s1, s2 = multi1["summary"], c["summary"]
     assert s1["ok"] and s2["ok"] and len(s1["registered"]) == len(s2["registered"]) == 3
     assert c["cam_ids"] == [int(i) for i in s1["registered"]], c["cam_ids"]
@@ -1841,14 +2135,15 @@ def phase_parallel(bands_ref):
                 "t_err": s["t_error"], "ate": s["ate"], "n_points": s["n_points"],
                 "rel_rot_deg": _rel_rot_deg(se3, multi1["pose_gt"])}
     r1, r2 = row(s1, multi1["se3"]), row(s2, c["se3"])
-    log("[parallel] (c) multiroom: " + json.dumps({
-        "init_one_rank": {"wall_s": walls["init"], "init_steps": init_steps,
-                          "init_ms_per_step": init_wall / init_steps * 1e3},
-        "one_rank": {**r1, "wall_s": walls["view3"],
+    init_steps = mr_init["init_steps"]
+    log("[parallel] (c) multiroom, in the checks' side processes: " + json.dumps({
+        "init_one_rank": {"wall_s": mr_init["wall_s"], "init_steps": init_steps,
+                          "init_ms_per_step": mr_init["init_wall"] / init_steps * 1e3},
+        "one_rank": {**r1, "wall_s": mr_view3["wall_s"],
                      "stage_s": [v["stage_s"] for v in multi1["view_log"]]},
         "ranks": {**r2, "wall_s": c["wall_s"],
                   "stage_s": [v["stage_s"] for v in c["view_log"]]},
-        "launch_s": wall_launch}))
+        "launch_s": side["launch_s"]}))
     for r in (r1, r2):
         assert r["reproj_px"] < MULTIROOM_MAX_REPROJ_PX, ("(c) not converged", r)
     _close("(c) multiroom", r2, r1,
@@ -1878,14 +2173,110 @@ def _rel_rot_deg(se3, pose_gt):
 
 # --------------------------------------------------------------------------- main
 
+# --------------------------------------------------------------------------- tools
+
+#: phase ab: the A/B's training steps per arm (its default 300, cut to fit
+#: the time limit) at its full width (--hw 128, --rays 2048)
+AB_STEPS = 60
+
+
+def _card_line():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_ab():
+    """``python -m level_s2fm_tpu_torch.ab_adaptive_sampler`` at its full
+    width with AB_STEPS steps an arm: rays/s, held-out PSNR and train s
+    per arm. Returns (launch counts, K1/K2 launch shapes)."""
+    from level_s2fm_tpu_torch import ab_adaptive_sampler
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    out = os.path.join(_out_dir("ab"), "ab_adaptive_sampler.json")
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = ab_adaptive_sampler.main([f"--steps={AB_STEPS}", "--out", out])
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    SCATTER_SEEN.update(_scatter_shapes())
+    shapes = {k: dict(v) for k, v in fc.SHAPES.items()}
+    with open(out) as f:
+        written = json.load(f)
+    log("[ab] " + json.dumps({
+        "card": _card_line(), "steps": AB_STEPS, "rays": 2048, "hw": 128,
+        "arms": {m: {k: v for k, v in r.items() if k != "losses"} | {
+            "loss_first": r["losses"][0], "loss_last": r["losses"][-1]}
+                 for m, r in res.items()},
+        "wall_s": wall, "launches": launches,
+        "launch_shapes": {k: {f"{R}x{K}": n for (R, K), n in v.items()}
+                          for k, v in shapes.items()}}))
+    assert written["backend"] == "gpu" and set(written["results"]) == set(res)
+    for m, r in res.items():
+        assert all(math.isfinite(x) for x in r["losses"]), m
+        assert math.isfinite(r["psnr_heldout_fg"]) and r["rays_per_s"] > 0, (m, r)
+    assert all(v > 0 for v in launches.values()), launches
+    return launches, shapes
+
+
+def phase_diag():
+    """``python -m level_s2fm_tpu_torch.diag_frontier_pnp`` on the
+    checkpoint phase prepared leaves, on the card and with ``--cpu``: a
+    row for every unregistered view, pairs >= gated >= every inlier
+    count, and the CPU's pairs and gated counts equal to the card's."""
+    from level_s2fm_tpu_torch import diag_frontier_pnp as diag
+    run_dir = os.path.join(REPO, "output", "chip_smoke", "prepared")
+    t0 = time.perf_counter()
+    card = diag.sweep(run_dir, PREPARED_ARGS)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = diag.sweep(run_dir, PREPARED_ARGS + ["--cpu"])
+    t_cpu = time.perf_counter() - t0
+    log(f"[diag] registered {card['registered']}, unregistered {card['unregistered']}, "
+        f"SDF gate {card['sdf_gate']}; card {t_card:.1f} s, --cpu {t_cpu:.1f} s")
+    log("[diag] view pairs gated " + " ".join(f"in@{g}px" for g in diag.GATES))
+    for row in card["rows"]:
+        log("[diag] " + diag.format_row(row))
+    assert card["device"] == "cuda" and cpu["device"] == "cpu"
+    assert card["unregistered"] and [r["view"] for r in card["rows"]] == card["unregistered"]
+    for row in card["rows"]:
+        assert row["pairs"] >= row["gated"] >= max(row["inliers"] or [0]), row
+    pg = lambda out: [(r["view"], r["pairs"], r["gated"]) for r in out["rows"]]  # noqa: E731
+    assert pg(card) == pg(cpu), (pg(card), pg(cpu))
+
+
+def phase_demo():
+    """``python -m level_s2fm_tpu_torch.two_view_init_demo`` at its
+    default ``--iters 200``: the pose errors and the files written.
+    Returns (launch counts, K1/K2 launch shapes)."""
+    import numpy as np
+    from level_s2fm_tpu_torch import two_view_init_demo
+    from level_s2fm_tpu_torch.rendering import fused_composite as fc
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = two_view_init_demo.main(["--out", _out_dir("demo")])
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    SCATTER_SEEN.update(_scatter_shapes())
+    shapes = {k: dict(v) for k, v in fc.SHAPES.items()}
+    sizes = {os.path.relpath(p, REPO): os.path.getsize(p) for p in res["written"]}
+    log("[demo] " + json.dumps({"rot_error_deg": res["rot_error_deg"],
+                                "t_error_deg": res["t_error_deg"], "files": sizes,
+                                "wall_s": wall, "launches": launches}))
+    assert len(sizes) == 8 and all(v > 0 for v in sizes.values()), sizes
+    assert np.isfinite([res["rot_error_deg"], res["t_error_deg"]]).all()
+    assert all(v > 0 for v in launches.values()), launches
+    return launches, shapes
+
+
 def main(argv=None):
     import argparse
     import torch
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--determinism", action="store_true",
-                    help="also time the render phases with and without "
-                         "deterministic algorithms and check that phase "
-                         "prepared's first-view row repeats")
+                    help="also time the render phases three ways: with the "
+                         "ordered scatter, with index_add_'s atomics and "
+                         "under deterministic algorithms")
     det = ap.parse_args(argv).determinism
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1905,60 +2296,54 @@ def main(argv=None):
     # the main path's composite shape: 8192 rays over 2 cameras, ray_chunk
     # 2048 -> two calls of R = 2 x 2048 rays, K = compact_samples = 32
     recs = phase_kernels(main_shape=(4096, 32))
+    scatter = phase_hold_scatter()
+    recs.append(scatter)
     phase_adapter()
     phase_reference()
     log(f"[time] {time.time() - t_start:.1f} s")
+
+    def held(tag, launches, shapes):
+        """Adds a main path's launches to the records and holds K1/K2 at
+        every shape it launched."""
+        shapes = sorted(set(shapes.get("fwd", {})) | set(shapes.get("bwd", {})))
+        err = hold_composite(shapes, torch.device("cuda"), tag=f"{tag} kernels")
+        for rec, kind in zip(recs, ("fwd", "bwd")):
+            rec["launches"] += launches[kind]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
+        scatter["launches"] += launches["scatter"]
+        log(f"[launches] {tag} " + json.dumps(launches))
+        log(f"[time] {time.time() - t_start:.1f} s")
+
     model, launches, init_summary = phase_init(det)
-    log(f"[time] {time.time() - t_start:.1f} s")
+    held("init", launches, {})
     reg_launches, reg_shapes = phase_register(model, det)
     del model
     torch.cuda.empty_cache()
-    log(f"[time] {time.time() - t_start:.1f} s")
-    shapes = sorted(set(reg_shapes["fwd"]) | set(reg_shapes["bwd"]))
-    err = hold_composite(shapes, torch.device("cuda"), tag="register kernels")
-    for rec, kind in zip(recs, ("fwd", "bwd")):
-        rec["launches"] = launches[kind] + reg_launches[kind]
-        rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
-    log("[launches] init " + json.dumps(launches) + " register "
-        + json.dumps(reg_launches))
-    bands_ref = phase_bands()
-    log(f"[time] {time.time() - t_start:.1f} s")
+    held("register", reg_launches, reg_shapes)
+    prep_launches, prep_shapes, prep_row = phase_prepared()
+    held("prepared", prep_launches, prep_shapes)
+    # the checks' runs share the card with the phases from here on
+    pool, futs = start_checks()
+    bands_ref, bands_launches = phase_bands()
+    held("bands", bands_launches, {})
     phase_scenes()
-    log(f"[time] {time.time() - t_start:.1f} s")
-    prep_launches, prep_shapes = phase_prepared(det)
-    shapes = sorted(set(prep_shapes["fwd"]) | set(prep_shapes["bwd"]))
-    err = hold_composite(shapes, torch.device("cuda"), tag="prepared kernels")
-    for rec, kind in zip(recs, ("fwd", "bwd")):
-        rec["launches"] += prep_launches[kind]
-        rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
-    log("[launches] prepared " + json.dumps(prep_launches))
-    log(f"[time] {time.time() - t_start:.1f} s")
-    opt_launches, opt_shapes = phase_options(init_summary)
-    log(f"[time] {time.time() - t_start:.1f} s")
-    abl_launches, abl_shapes = phase_ablations()
-    log(f"[time] {time.time() - t_start:.1f} s")
-    shapes = sorted(set(opt_shapes["fwd"]) | set(opt_shapes["bwd"])
-                    | set(abl_shapes["fwd"]) | set(abl_shapes["bwd"]))
-    err = hold_composite(shapes, torch.device("cuda"), tag="options/ablations kernels")
-    for rec, kind in zip(recs, ("fwd", "bwd")):
-        rec["launches"] += opt_launches[kind] + abl_launches[kind]
-        rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
-    log("[launches] options " + json.dumps(opt_launches) + " ablations "
-        + json.dumps(abl_launches))
-    log(f"[time] {time.time() - t_start:.1f} s")
-    par_launches, par_shapes = phase_parallel(bands_ref)
-    shapes = sorted(set(par_shapes["fwd"]) | set(par_shapes["bwd"]))
-    err = hold_composite(shapes, torch.device("cuda"), tag="parallel kernels")
-    for rec, kind in zip(recs, ("fwd", "bwd")):
-        rec["launches"] += par_launches[kind]
-        rec["max_abs_err"] = max(rec["max_abs_err"], err[kind])
-    log("[launches] parallel " + json.dumps(par_launches))
+    phase_diag()
+    held("options", *phase_options(init_summary))
+    held("ablations", *phase_ablations())
+    held("ab", *phase_ab())
+    held("demo", *phase_demo())
+    checks = finish_checks(pool, futs)
+    held("prepared repeat", *check_prepared_repeat(prep_row, checks["prepared_repeat"]))
+    held("parallel", *phase_parallel(bands_ref, checks))
+    err = 0.0
+    for name, case in scatter_at_shapes(list(SCATTER_SEEN), torch.device("cuda")):
+        err = max(err, hold_scatter({name: case}, tag="hold_scatter seen"))
+    scatter["max_abs_err"] = max(scatter["max_abs_err"], err)
+    log(f"[hold_scatter] held at all {len(SCATTER_SEEN)} (n, m, F) shapes launched "
+        f"on the main paths, with random keys: max_abs_err {err}")
     log(f"[done] {time.time() - t_start:.1f} s")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(_card_line())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))

@@ -2,19 +2,22 @@
 
 Counterpart of ``level_s2fm_tpu/fields/hashgrid.py``. Plain tensor ops: the 8-corner gather from
 the [L,T,F] table, trilinear interpolation, and the analytic spatial
-Jacobian from the same gathered corners. On Hopper the gather and its
-scatter-add backward become hand kernels in a later slice (ROADMAP H1/H2).
+Jacobian from the same gathered corners. The table cotangent is summed
+by ``hash_scatter.ordered_scatter_add``: on the card a hand kernel
+(``csrc/hash_scatter.cu``) adds each row's contributions in the CPU's
+order, so card runs repeat without deterministic mode. The gather and
+the rest of the backward are hand kernels of a later slice (ROADMAP
+H1/H2).
 
 Hash indices are uint32 arithmetic in the JAX package
 (``x*1 ^ y*2654435761 ^ z*805459861 mod T``); torch has no general
 uint32, so products are taken in int64 and masked with ``& 0xFFFFFFFF``.
 
 ``compute_dtype="bfloat16"`` rounds the gathered table rows to bf16 (the
-JAX package's half-width reads) while the table cotangent stays f32: the
-gather is an autograd.Function whose backward ``index_add_``s f32
-cotangents into an f32 table gradient. A plain ``table.to(bfloat16)[idx]``
-would round the cotangent to bf16, which the JAX package measured to
-drive init training to NaN.
+JAX package's half-width reads) while the table cotangent stays f32
+(``hash_scatter.RowGather``): a plain ``table.to(bfloat16)[idx]`` would
+round the cotangent to bf16, which the JAX package measured to drive
+init training to NaN.
 
 ``paired_dense`` (the JAX package's two-row gather of x-adjacent corners
 on the dense levels) changed only the fetch shape, because a TPU gather
@@ -29,6 +32,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import hash_scatter
 
 # tcnn-compatible hashing primes (public constants of the NGP paper)
 _PRIMES = (1, 2654435761, 805459861)
@@ -104,25 +109,11 @@ def _level_indices(grid_int: torch.Tensor, res: torch.Tensor,
     return torch.where(dense_fits, dense_idx % table_size, hashed)
 
 
-class _TableGather(torch.autograd.Function):
-    """Row gather from the flat [M,F] table. With ``bf16`` the gathered
-    values are rounded to bf16; the cotangent is accumulated in f32."""
-
-    @staticmethod
-    def forward(ctx, flat, gi, bf16: bool):
-        ctx.save_for_backward(gi)
-        ctx.m = flat.shape[0]
-        out = flat[gi]
-        if bf16:
-            out = out.to(torch.bfloat16).to(flat.dtype)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        (gi,) = ctx.saved_tensors
-        d = torch.zeros((ctx.m, g.shape[-1]), dtype=g.dtype, device=g.device)
-        d.index_add_(0, gi, g)
-        return d, None, None
+def flat_indices(idx: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Per-level indices [L,...] into the [L,T,F] table -> flat row
+    indices [L*...] into its [L*T, F] view."""
+    lvl = torch.arange(idx.shape[0], device=idx.device) * table_size
+    return (idx + lvl.reshape(-1, *([1] * (idx.dim() - 1)))).reshape(-1)
 
 
 def _flat_gather(table: torch.Tensor, idx: torch.Tensor,
@@ -131,19 +122,18 @@ def _flat_gather(table: torch.Tensor, idx: torch.Tensor,
     gather on [L*T, F]."""
     L, T, F = table.shape
     flat = table.reshape(L * T, F)
-    lvl = torch.arange(L, device=idx.device)[:, None, None] * T
-    gi = (idx + lvl).reshape(-1)
-    out = _TableGather.apply(flat, gi, cfg.compute_dtype == "bfloat16")
+    out = hash_scatter.gather_rows(flat, flat_indices(idx, T),
+                                   cfg.compute_dtype == "bfloat16")
     return out.reshape(*idx.shape, F)
 
 
 _OFFSETS8 = tuple((i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1))
 
 
-def _corner_data(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig):
-    """Gather the 8 trilerp corner features for every level.
+def corner_indices(x: torch.Tensor, cfg: HashGridConfig):
+    """Table indices of the 8 trilerp corners of every level.
 
-    x: [N,3] in [0,1]^3. Returns (feats [L,N,8,F], frac [L,N,3]).
+    x: [N,3] in [0,1]^3. Returns (idx [L,N,8] int64, frac [L,N,3]).
     """
     dev = x.device
     res_np = cfg.resolutions().astype(np.int64)
@@ -160,6 +150,15 @@ def _corner_data(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig):
                                  device=dev)[:, None, None]
     idx = _level_indices(corners, res[:, None, None], dense_fits,
                          cfg.table_size)
+    return idx, frac
+
+
+def _corner_data(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig):
+    """Gather the 8 trilerp corner features for every level.
+
+    x: [N,3] in [0,1]^3. Returns (feats [L,N,8,F], frac [L,N,3]).
+    """
+    idx, frac = corner_indices(x, cfg)
     feats = _flat_gather(table, idx, cfg)                        # [L,N,8,F]
     return feats, frac
 

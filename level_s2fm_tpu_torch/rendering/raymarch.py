@@ -4,7 +4,8 @@ Counterpart of ``level_s2fm_tpu/rendering/raymarch.py``: the occupancy
 grid that compacts the renderer's samples, and the parity module of the
 reference's vren ray marcher and compositor (fixed samples per ray,
 empty cells masked, transmittance early stop by masking), ``trunc_exp``
-(exp with a clipped gradient) and ``segment_mean``.
+(exp with a clipped gradient) and ``segment_mean`` (summed in a fixed
+order by the ordered scatter, on the card too).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..fields.hash_scatter import OrderedScatter
 from . import aabb as aabb_mod
 
 
@@ -116,7 +118,6 @@ def composite_hard_stop(sigmas, rgbs, deltas, valid,
 def segment_mean(values, segment_ids, num_segments: int):
     """Mean of ``values`` [N] per segment id in [0, num_segments); an
     empty segment gives 0."""
-    s = torch.zeros(num_segments, dtype=values.dtype, device=values.device)
-    s = s.index_add(0, segment_ids, values)
-    c = torch.zeros_like(s).index_add(0, segment_ids, torch.ones_like(values))
+    both = torch.stack([values, torch.ones_like(values)], dim=-1)
+    s, c = OrderedScatter.apply(both, segment_ids, num_segments).unbind(-1)
     return s / torch.clamp(c, min=1.0)

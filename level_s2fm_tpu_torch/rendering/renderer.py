@@ -15,6 +15,13 @@ from the opacity CDF, sorted together with the uniform ones). Under
 
 ``ray_chunk`` splits large batches into chunks exactly as the JAX
 package does, so results stay identical; chunks are not rematerialized.
+
+The differentiable gathers along the sample axis (the occupancy
+compaction's, the adaptive sampler's) are ``take_along_last``, whose
+gradient is summed in a fixed order on the card (``fields/hash_scatter``);
+``torch.gather``'s backward would add with float atomics there. The
+gathers left as ``torch.gather`` take a permutation, one contribution a
+slot, which any order sums exactly.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..fields import radiance as radf
+from ..fields.hash_scatter import take_along_last
 from ..fields import sdf as sdf_mod
 from . import aabb as aabb_mod
 from . import fused_composite as fc
@@ -135,11 +143,11 @@ def sample_pdf(bins, weights, n_importance: int, eps: float = 1e-5):
     inds = _search_left(cdf, u)
     below = torch.clamp(inds - 1, min=0)
     above = torch.clamp(inds, max=cdf.shape[-1] - 1)
-    cdf_g0 = torch.gather(cdf, -1, below)
-    cdf_g1 = torch.gather(cdf, -1, above)
+    cdf_g0 = take_along_last(cdf, below)
+    cdf_g1 = take_along_last(cdf, above)
     nb = bins.shape[-1] - 1
-    bins_g0 = torch.gather(bins, -1, torch.clamp(below, max=nb))
-    bins_g1 = torch.gather(bins, -1, torch.clamp(above, max=nb))
+    bins_g0 = take_along_last(bins, torch.clamp(below, max=nb))
+    bins_g1 = take_along_last(bins, torch.clamp(above, max=nb))
     denom = cdf_g1 - cdf_g0
     denom = torch.where(denom < eps, 1.0, denom)
     t = (u - cdf_g0) / denom
@@ -158,10 +166,10 @@ def opacity_to_sample(d_vals, sdf, alpha, beta, n_final: int):
     lo = torch.clamp(idx - 1, min=0)
     hi = torch.clamp(idx, max=opacity.shape[-1] - 1)
     nd = d_vals.shape[-1] - 1
-    d_lo = torch.gather(d_vals, -1, torch.clamp(lo, max=nd))
-    d_hi = torch.gather(d_vals, -1, torch.clamp(hi, max=nd))
-    c_lo = torch.gather(opacity, -1, lo)
-    c_hi = torch.gather(opacity, -1, hi)
+    d_lo = take_along_last(d_vals, torch.clamp(lo, max=nd))
+    d_hi = take_along_last(d_vals, torch.clamp(hi, max=nd))
+    c_lo = take_along_last(opacity, lo)
+    c_hi = take_along_last(opacity, hi)
     t = (unif - c_lo) / (c_hi - c_lo + 1e-8)
     return d_lo + t * (d_hi - d_lo)
 
@@ -248,7 +256,7 @@ def compact_by_occupancy(depths, center, ray, occ_grid, K: int):
     idx = torch.searchsorted(cum, ks.expand(*cum.shape[:-1], K).contiguous())
     v_sel = ks <= cum[..., -1:]
     idx = torch.clamp(idx, max=depths.shape[-1] - 1)
-    d_sel = torch.take_along_dim(depths, idx, dim=-1)
+    d_sel = take_along_last(depths, idx)
     return d_sel, v_sel
 
 

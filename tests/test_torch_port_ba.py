@@ -36,14 +36,11 @@ import pytest
 import torch
 
 from level_s2fm_tpu.sfm import bundle as jbundle
-from level_s2fm_tpu_torch.config import build_options
-from level_s2fm_tpu_torch.fields import sdf as tsdf
 from level_s2fm_tpu_torch.sfm import bundle as tbundle
 from level_s2fm_tpu_torch.sfm import optim as toptim
 from level_s2fm_tpu_torch.sfm import optstate as tos
-from level_s2fm_tpu_torch.sfm import phases as tphases
 
-from torch_port_helpers import TINY_ARGS, two_view_state
+from torch_port_helpers import jit_jax_occ, two_view_state
 
 RTOL = 2e-4
 
@@ -129,45 +126,6 @@ def test_ba_sfm_steps_match_and_rad_stays_frozen(state):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("mode", ["sfm_refine", "refine"])
-def test_rendering_steps_match(state, mode):
-    """BA ``sfm_refine`` of view 1 alone (pose cotangents through the
-    composite) and ``RefinePhase`` over both views, three steps each."""
-    jm, tm = state
-    if mode == "sfm_refine":
-        jb, js, tb, ts = _bundlers(state, [1], "sfm_refine")
-        jphase, tphase = jb.phase, tb.phase
-        jbatch, tbatch = dict(jb.batch), dict(tb.batch)
-    else:
-        jr = jbundle.Refiner(jm.opt, jm.cfgs, jm.camera_set, jm.point_set)
-        tr = tbundle.Refiner(tm.opt, tm.cfgs, tm.camera_set, tm.point_set,
-                             device="cpu")
-        _batches_match(tr.batch, jr.batch)
-        jphase, tphase = jr.phase, tr.phase
-        jbatch, tbatch = dict(jr.batch), dict(tr.batch)
-        js = jphase.init_state(jm.params)
-        ts = tphase.init_state(_tree_to(tm.params, "cpu"))
-    jbatch["occ"] = jbundle.maybe_build_occ(jm.opt, jm.cfgs, js["params"])
-    tbatch["occ"] = tbundle.maybe_build_occ(tm.opt, tm.cfgs, ts["params"])
-    C, HW = tbatch["images"].shape[:2]
-    n_rays = min(tm.cfgs.rand_rays // C, HW)
-    for i in range(3):
-        key = jax.random.PRNGKey(20 + i)
-        if mode == "sfm_refine" and i == 2:
-            _start_from_jax(ts, js)
-        js, jmet = jphase.step(js, jbatch, key)
-        tmet = tphase.step(ts, tbatch, None,
-                           **_render_draws(key, HW, n_rays, tbatch["n_real"]))
-        _check_metrics(tmet, jmet, i)
-        if mode == "sfm_refine" and i == 0:
-            _poses_match(ts, js, 1e-6)
-    assert float(jmet["rgb"]) > 0 and float(jmet["tracing_loss"]) > 0
-    if mode == "sfm_refine":
-        moved = ts["params"]["se3_r"].detach().numpy() - tm.camera_set(1).se3[:3]
-        assert np.abs(moved).max() > 1e-3      # the pose did move
-        _poses_match(ts, js, 5e-4)
-
-
 def _start_from_jax(ts, js):
     """Give the port's phase state the JAX side's: parameters, carried
     points and Adam moments (the flat optax leaves, through
@@ -207,7 +165,7 @@ def test_sfm_refine_step_two_ranks_matches_the_jax_mesh(state):
     jm, tm = state
     jb, js, tb, ts = _bundlers(state, [1], "sfm_refine")
     jbatch, tbatch = dict(jb.batch), dict(tb.batch)
-    jbatch["occ"] = jbundle.maybe_build_occ(jm.opt, jm.cfgs, js["params"])
+    jbatch["occ"] = jit_jax_occ()(jm.opt, jm.cfgs, js["params"])
     tbatch["occ"] = tbundle.maybe_build_occ(tm.opt, tm.cfgs, ts["params"])
     C, HW = tbatch["images"].shape[:2]
     key = jax.random.PRNGKey(20)
@@ -230,128 +188,6 @@ def test_sfm_refine_step_two_ranks_matches_the_jax_mesh(state):
                     toptim.tree_leaves(st1["params"])):
         assert torch.equal(a, b)
     assert all(torch.equal(met0[k], met1[k]) for k in met0)
-
-
-@pytest.mark.parametrize("grads", ["identical", "drawn"])
-def test_phase_adam_is_adam_stacked_to_the_last_bit(grads):
-    """``PhaseAdam``'s float32 rounding: five updates equal
-    ``jit(adam_stacked(...).update)``'s (through the JAX package's phase
-    optimizer: per-label lr, the shared gamma) to 0 ulp, for one
-    gradient repeated and for fresh gradients, of magnitudes 1e-6..10."""
-    from level_s2fm_tpu.sfm import optim as joptim
-    rng = np.random.default_rng(5)
-
-    def draw(shapes):
-        return {k: {n: (10.0 ** rng.uniform(-6, 1, sh) * rng.choice([-1, 1], sh))
-                    .astype(np.float32) for n, sh in d.items()}
-                for k, d in shapes.items()}
-
-    shapes = {"sdf": {"table": (3, 700), "w": (16,)}, "rad": {"w": (300,)}}
-    p0 = draw(shapes)
-    gamma = joptim.decay_gamma(1e-3, 1e-4, 500)
-    labels, lrs = {"sdf": "sdf", "rad": "color"}, {"sdf": 1e-3, "color": 1e-2}
-    tx = joptim.make_phase_optimizer(p0, labels, lrs, gamma)
-    st = tx.init(jax.tree.map(jnp.asarray, p0))
-    opt = toptim.PhaseAdam({k: {n: torch.tensor(v) for n, v in d.items()}
-                            for k, d in p0.items()}, labels, lrs, gamma)
-    update = jax.jit(tx.update)
-    g = draw(shapes)
-    for _ in range(5):
-        if grads == "drawn":
-            g = draw(shapes)
-        ju, st = update(jax.tree.map(jnp.asarray, g), st)
-        tu = opt.updates([torch.tensor(x) for x in jax.tree.leaves(g)])
-        for a, b in zip(tu, jax.tree.leaves(ju)):
-            np.testing.assert_array_equal(a.numpy().view(np.int32),
-                                          np.asarray(b).view(np.int32))
-
-
-def test_frozen_label_gets_no_moments_and_no_update():
-    p = {"sdf": {"x": torch.ones(3)}, "rad": {"y": torch.full((2,), 2.0)}}
-    opt = toptim.PhaseAdam(p, {"sdf": "sdf", "rad": toptim.FROZEN},
-                           {"sdf": 0.1}, gamma=1.0)
-    assert len(opt.leaves) == len(opt.mu) == 1 and opt.leaves[0] is p["sdf"]["x"]
-    y0 = p["rad"]["y"].clone()
-    tphases.guarded_update(opt, [torch.ones(3)])
-    assert torch.equal(p["rad"]["y"], y0)
-    assert not torch.equal(p["sdf"]["x"], torch.ones(3))
-
-
-def test_surface_projection_gradcheck():
-    """BA's reprojection loss differentiates the analytic normal inside
-    ``get_surface_pts`` w.r.t. the table and the MLP: the fused sdf and
-    normal pass gradcheck in f64, and ``get_surface_pts``'s gradient is
-    that of pts - n * sdf / |n| with |n| held constant (the divisor is
-    detached, as the JAX package's stop_gradient does)."""
-    opt = build_options(TINY_ARGS + ["--SDF.Hash_config.n_levels=2",
-                                     "--SDF.Hash_config.log2_hashmap_size=5",
-                                     "--SDF.arch.layers=[null,4,2]"])
-    cfg = tsdf.config_from_opt(opt)
-    gen = torch.Generator().manual_seed(0)
-    params = tsdf.init_params(cfg, gen)
-    table = (params["table"] + 0.05 * torch.randn(
-        params["table"].shape, generator=gen)).double().requires_grad_(True)
-    layers = [{k: v.double() for k, v in lay.items()}
-              for lay in params["mlp"]["layers"]]
-    w = layers[0]["V"].requires_grad_(True)
-    pts = (0.5 * torch.randn(5, 3, generator=gen)).double()
-
-    def field(table, w):
-        return {"table": table,
-                "mlp": {"layers": [dict(layers[0], V=w)] + layers[1:]}}
-
-    def sdf_and_normal(table, w):
-        s, _, n = tsdf.infer_all_with_normal(field(table, w), cfg, pts)
-        return s, n
-
-    assert torch.autograd.gradcheck(sdf_and_normal, (table, w), eps=1e-6,
-                                    atol=1e-5)
-    surf, _ = tsdf.get_surface_pts(field(table, w), cfg, pts)
-    s, n = sdf_and_normal(table, w)
-    denom = torch.linalg.norm(n, dim=-1, keepdim=True).detach()
-    want = pts - n / denom * s
-    torch.testing.assert_close(surf, want)
-    cot = torch.randn(surf.shape, generator=gen, dtype=torch.float64)
-    for a, b in zip(torch.autograd.grad(surf, (table, w), cot),
-                    torch.autograd.grad(want, (table, w), cot)):
-        torch.testing.assert_close(a, b)
-
-
-@pytest.mark.gpu
-def test_sfm_refine_step_on_gpu_matches_cpu(gpu, state):
-    """One ``BAPhase('sfm_refine')`` step on the card (K1/K2) against the
-    CPU's plain path from the same state and draws: losses to 1e-3
-    relative, the se3 gradient to 1e-3 of its largest entry."""
-    from level_s2fm_tpu_torch.rendering import fused_composite as fc
-    _, tm = state
-    out = {}
-    for dev in ("cpu", "cuda"):
-        tb = tbundle.Bundler(tm.opt, tm.cfgs, copy.deepcopy(tm.camera_set),
-                             tm.point_set, cam_pick_ids=[1], mode="sfm_refine",
-                             device=dev)
-        se3 = tm.camera_set.all_se3(tb.padded_ids)
-        params = {"sdf": _tree_to(tm.params["sdf"], dev),
-                  "rad": _tree_to(tm.params["rad"], dev),
-                  "se3_r": torch.as_tensor(se3[:, :3]).to(dev),
-                  "se3_t": torch.as_tensor(se3[:, 3:]).to(dev)}
-        st = tb.phase.init_state(params, tb.xyzs0)
-        batch = dict(tb.batch)
-        batch["occ"] = tbundle.maybe_build_occ(tm.opt, tm.cfgs, params)
-        HW = tm.cfgs.H * tm.cfgs.W
-        loss, metrics, _ = tb.phase._losses(params, st["xyzs"], batch, None,
-                                            rays_idx=torch.arange(HW), trace_cam=0)
-        total = tb.phase.objective(loss, metrics)
-        before = dict(fc.LAUNCHES)
-        g = torch.autograd.grad(total, (params["se3_r"], params["se3_t"]))
-        if dev == "cuda":
-            assert fc.LAUNCHES["bwd"] > before["bwd"]
-        out[dev] = ({k: float(v.detach()) for k, v in {**loss, **metrics}.items()},
-                    torch.cat(g, 1).cpu())
-    for k, v in out["cpu"][0].items():
-        assert abs(out["cuda"][0][k] - v) <= 1e-3 * max(abs(v), 1e-6), k
-    gc, gg = out["cpu"][1], out["cuda"][1]
-    assert (gg - gc).abs().max() <= 1e-3 * gc.abs().max()
-    assert gc.abs().max() > 0
 
 
 def _tree_to(tree, dev):

@@ -12,23 +12,18 @@ byte except where a float comes from a pose (``cam.pose()`` is computed
 by each package's own se(3) exponential, equal to ~1e-7), which are
 compared parsed within 1e-6; ``colorize`` within 1/255 of matplotlib.
 """
-import json
-
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
 from level_s2fm_tpu.utils import export as jexp
 from level_s2fm_tpu.utils import marching_cubes as jmc
-from level_s2fm_tpu.viz import html_viewer as jhtml
 from level_s2fm_tpu_torch.geometry import lie as tlie
 from level_s2fm_tpu_torch.utils import export as texp
 from level_s2fm_tpu_torch.utils import marching_cubes as tmc
 from level_s2fm_tpu_torch.utils import vis as tvis
-from level_s2fm_tpu_torch.viz import html_viewer as thtml
 
 from torch_port_helpers import _scene_var, copy_scene, jax_opt, perturb_table, torch_opt
 
@@ -139,25 +134,6 @@ def test_render_traced_depth_matches_jax(scene):
         assert _err(a[k][fin], b[k][fin]) <= 1e-4, k
 
 
-def test_eval_depth_vs_gt_matches_jax(scene):
-    """Three cameras (the Procrustes scale path); GT depth maps at 8x8
-    with a row unmeasured, nearest-resampled to the 16x16 grid (factor 1:
-    the traces have the previous test's shape, so the JAX side compiles
-    nothing new)."""
-    jm, tm = scene
-    rng = np.random.default_rng(1)
-    gt = rng.uniform(0.5, 3.0, (3, 8, 8)).astype(np.float32)
-    gt[:, 0, :] = 0.0
-    a = jexp.eval_depth_vs_gt(jm.params, jm.sdf_cfg, jm.camera_set, gt, factor=1,
-                              verbose=False)
-    b = texp.eval_depth_vs_gt(tm.params, tm.sdf_cfg, tm.camera_set, gt, factor=1,
-                              verbose=False)
-    assert a["n_px"] == b["n_px"] > 0
-    for k in ("abs_rel", "rmse"):
-        assert abs(a[k] - b[k]) <= 1e-5, (k, a[k], b[k])
-    assert set(a["per_view"]) == set(b["per_view"])
-
-
 def _parse_floats(text):
     out = []
     for t in text.split():
@@ -166,32 +142,6 @@ def _parse_floats(text):
         except ValueError:
             pass
     return out
-
-
-def test_export_files_match_jax(scene, tmp_path):
-    """Point cloud, cameras JSON, COLMAP text model and viewer page."""
-    jm, tm = scene
-    jd, td = tmp_path / "j", tmp_path / "t"
-    for d, exp, m in ((jd, jexp, jm), (td, texp, tm)):
-        exp.export_pointcloud(m.point_set, str(d / "pointcloud.ply"))
-        exp.export_cameras_json(m.camera_set, str(d / "cameras.json"))
-        exp.export_colmap_model(m.camera_set, m.point_set, str(d / "sparse"),
-                                ext=".txt")
-    assert (jd / "pointcloud.ply").read_bytes() == (td / "pointcloud.ply").read_bytes()
-    ja, ta = (json.loads((d / "cameras.json").read_text()) for d in (jd, td))
-    assert [c["id"] for c in ja] == [c["id"] for c in ta]
-    for c, d in zip(ja, ta):
-        assert c["K"] == d["K"] and c["img_size"] == d["img_size"]
-        assert _err(c["W2C"], d["W2C"]) <= 1e-6
-    for f in ("cameras.txt", "points3D.txt"):
-        assert (jd / "sparse" / f).read_bytes() == (td / "sparse" / f).read_bytes(), f
-    ji, ti = ((d / "sparse" / "images.txt").read_text() for d in (jd, td))
-    assert [l.split()[-1] for l in ji.splitlines()[3::2]] == \
-        [l.split()[-1] for l in ti.splitlines()[3::2]]
-    assert _err(_parse_floats(ji), _parse_floats(ti)) <= 1e-6
-    # the viewer page of the same run directory, byte for byte
-    assert open(jhtml.export_html(str(jd), str(tmp_path / "j.html"))).read() == \
-        open(thtml.export_html(str(jd), str(tmp_path / "t.html"))).read()
 
 
 def test_colorize_matches_matplotlib():

@@ -11,21 +11,17 @@ without them bit for bit and its gradients to 1e-5 relative [exact],
 depths and sdf values 1e-5 from the JAX package's [2e-6] and the
 gradients 1e-4 relative [7e-5].
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from level_s2fm_tpu.fields import sdf as jsdf
 from level_s2fm_tpu.rendering import renderer as jren
 from level_s2fm_tpu_torch.convert import params_from_jax
-from level_s2fm_tpu_torch.fields import sdf as tsdf
 from level_s2fm_tpu_torch.rendering import renderer as tren
-from level_s2fm_tpu_torch.sfm import optim as toptim
 
-from torch_port_helpers import (field_cfgs, jax_opt, rel_err, render_both,
-                                sphere_rays, torch_opt, visible_params)
+from torch_port_helpers import (
+    field_cfgs, jax_opt, rel_err, render_both, sphere_rays, torch_opt, visible_params)
 
 def test_volsdf_helpers_and_search():
     rng = np.random.default_rng(4)
@@ -128,59 +124,3 @@ def test_volsdf_sampling_depths_and_render():
     for k in ("rgb", "depth_mlp", "opacity"):
         np.testing.assert_allclose(tout[k].detach().numpy(), np.asarray(jout[k]),
                                    rtol=0, atol=1e-4, err_msg=k)
-
-
-def test_march_and_reeval_compact_are_exact(monkeypatch):
-    """Sphere tracing with ``march_compact`` and ``reeval_compact``: the
-    port with the knobs = the JAX package with the knobs = the port
-    without them, in values and gradients; the port evaluates fewer
-    points with them."""
-    knobs = ["--SDF.VolSDF.march_compact=0.5", "--SDF.VolSDF.reeval_compact=0.6"]
-    # a smooth field: on a rough one (5x this perturbation) the march
-    # amplifies rounding (the field's slope along a ray exceeds 1), so
-    # the two packages' tracks part by 2e-3 after ten steps, knobs or not
-    pnp = visible_params(jax_opt(), seed=4, scale=0.01)
-    o, d = sphere_rays(64, seed=1)
-    jcfg = jsdf.config_from_opt(jax_opt(knobs))
-    assert jcfg.march_compact == 0.5 and jcfg.reeval_compact == 0.6
-    key = jax.random.PRNGKey(0)
-
-    def jloss(p):
-        r = jsdf.sphere_tracing(p, jcfg, o, d, key=key)
-        return jnp.sum(jnp.abs(r.d_pred)) + jnp.sum(jnp.abs(r.sdf_surf)), r
-
-    (_, jr), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
-        jax.tree.map(jnp.asarray, pnp["sdf"]))
-    k1, k2, _ = jax.random.split(key, 3)
-    draws = {"factor_rand": torch.as_tensor(np.array(jax.random.uniform(k1, (64,)))),
-             "pick": torch.as_tensor(np.array(jax.random.permutation(k2, 64)))}
-    n_eval = []
-    real = tsdf.infer_sdf
-    monkeypatch.setattr(tsdf, "infer_sdf", lambda p, c, x: (
-        n_eval.append(x[..., 0].numel()), real(p, c, x))[1])
-    out = {}
-    for name, extra in (("knobs", knobs), ("plain", [])):
-        cfg = tsdf.config_from_opt(torch_opt(extra))
-        tp = params_from_jax(pnp["sdf"], device="cpu")
-        leaves = toptim.tree_leaves(tp)
-        for x in leaves:
-            x.requires_grad_(True)
-        n_eval.clear()
-        r = tsdf.sphere_tracing(tp, cfg, torch.as_tensor(o), torch.as_tensor(d),
-                                draws=draws)
-        loss = r.d_pred.abs().sum() + r.sdf_surf.abs().sum()
-        g = torch.autograd.grad(loss, leaves, allow_unused=True)
-        g = [torch.zeros_like(x) if gi is None else gi for x, gi in zip(leaves, g)]
-        out[name] = (r, g, sum(n_eval))
-    assert out["knobs"][2] < out["plain"][2]
-    for r, g, _ in out.values():
-        np.testing.assert_allclose(r.d_pred.detach().numpy(), np.asarray(jr.d_pred),
-                                   rtol=0, atol=1e-5)
-        np.testing.assert_allclose(r.sdf_surf.detach().numpy(), np.asarray(jr.sdf_surf),
-                                   rtol=0, atol=1e-5)
-        np.testing.assert_array_equal(r.finish_mask.numpy(), np.asarray(jr.finish_mask))
-        for a, b in zip(g, jax.tree.leaves(jg)):
-            assert rel_err(a.numpy(), np.asarray(b)) <= 1e-4
-    assert torch.equal(out["knobs"][0].d_pred, out["plain"][0].d_pred)
-    for a, b in zip(out["knobs"][1], out["plain"][1]):
-        assert rel_err(a.numpy(), b.numpy()) <= 1e-5

@@ -27,7 +27,7 @@ from level_s2fm_tpu_torch.data import synthetic as tsyn
 from level_s2fm_tpu_torch.sfm import initialization as tinit
 from level_s2fm_tpu_torch.sfm import pipeline as tpipe
 
-from torch_port_helpers import jax_opt, torch_opt, use_jax_minigeom
+from torch_port_helpers import jax_opt, jit_jax_occ, torch_opt, use_jax_minigeom
 
 LOSSES = ("reproj_error", "sdf_surf", "eikonal_loss", "rgb", "DC_Loss",
           "PSNR", "all", "nonfinite")
@@ -47,6 +47,7 @@ def _init_var(var):
 def both():
     with pytest.MonkeyPatch.context() as mp:
         use_jax_minigeom(mp)    # the JAX Initializer's RANSAC must not take cv2
+        jit_jax_occ(mp)
         yield _both()
 
 

@@ -208,6 +208,27 @@ def use_jax_minigeom(monkeypatch, timeout_s=30.0):
     monkeypatch.setattr(jhg, "_HAS_MINIGEOM", True)
 
 
+def jit_jax_occ(monkeypatch=None):
+    """The JAX package's ``bundle.maybe_build_occ`` under one ``jax.jit``
+    per configuration. The package builds the occupancy grid op by op,
+    which compiles each op of the SDF on first use (a few seconds a
+    test file); jitted it is one compile. With ``monkeypatch`` the
+    package's phases (``run_phase_occ_refresh``) take it too. Returns
+    the jitted builder."""
+    import jax
+    from level_s2fm_tpu.sfm import bundle as jbundle
+    plain = jbundle.maybe_build_occ
+    jitted = {}
+
+    def occ(opt, cfgs, params):
+        if id(cfgs) not in jitted:
+            jitted[id(cfgs)] = (cfgs, jax.jit(lambda p: plain(opt, cfgs, p)))
+        return jitted[id(cfgs)][1](params)
+    if monkeypatch is not None:
+        monkeypatch.setattr(jbundle, "maybe_build_occ", occ)
+    return occ
+
+
 def two_view_state(n_views=3, extra=(), *, monkeypatch):
     """The JAX package's two-view start of the tiny configuration on an
     ``n_views`` scene, and the port's engine given the same state by
