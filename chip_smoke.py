@@ -159,14 +159,20 @@ walls are not read (phase prepared's second engine, phase parallel's
    default ``--iters 200``: the pose errors and the eight files written.
 
 After phase kernels, hold_scatter holds the ordered scatter
-(``csrc/hash_scatter.cu``) at the main path's shapes (16.8 M
-contributions of the full-width hash grid; its coarse dense level 0
-alone; the occupancy compaction's gather backward): bit for bit the
-CPU's plain version (the same order), within ``SCATTER_RTOL`` of a row's
-sum of |contributions| of ``index_add_``'s atomics on the card, three
-calls bitwise equal; then timed beside ``index_add_`` (plain) and
-``index_put_`` with accumulate (library). At the end it is held the same
-way at every (rows, features) it launched on the main paths.
+(``csrc/hash_scatter.cu``: a radix sort of the keys' own bits, then a
+segment sum) at the main path's shapes (16.8 M contributions of the
+full-width hash grid; its coarse dense level 0 alone; the occupancy
+compaction's gather backward) and at the edge shapes of its sort tile
+(``scatter_edge_cases``): bit for bit the CPU's plain version (the same
+order), within ``SCATTER_RTOL`` of a row's sum of |contributions| of
+``index_add_``'s atomics on the card, three calls bitwise equal; then
+timed (each kernel's share and the launches a call from torch.profiler,
+which must show the scatter's kernels and no more launches than the
+parent commit's scatter) beside ``torch.sort`` of the keys (the parent's
+sort), ``index_add_`` (plain) and ``index_put_`` with accumulate
+(library). At the end it is held the same way at every (n, m, F) it
+launched on the main paths, and its launches a call are counted and
+held to the parent's at the smallest of them.
 
 Phase reference also holds one InitPhase step and one
 ``BAPhase('rad_init')`` step under ``OPTION_SWITCHES`` (tiny widths) to
@@ -556,28 +562,60 @@ def scatter_inputs(dev, points=SCATTER_POINTS, seed=0):
     return cases
 
 
+def scatter_edge_cases(dev, tile, seed=2):
+    """(name, (gi, g, m)) at the edge shapes of a sort tile of ``tile``
+    keys: no contribution, one, a tile - 1 and + 1; one row, 2^k and
+    2^k + 1 rows; all keys equal; one row of 3,400 among others; keys
+    outside [0, m) (they touch no row); 2^24 + 1 rows (four sort passes).
+    Cotangents spread over 16 binades, so the order of a sum shows."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [("random", 0, 5, 2), ("random", 1, 1, 1), ("random", tile - 1, 2 ** 12, 2),
+              ("random", tile + 1, 2 ** 12 + 1, 4), ("random", tile + 1, 1, 8),
+              ("all_equal", 2 * tile + 3, 300, 1), ("long_segment", 3600, 2 ** 16 + 1, 2),
+              ("out_of_range", tile + 1, 1000, 2), ("random", 3000, 2 ** 24 + 1, 1)]
+    for name, n, m, F in shapes:
+        gi = torch.randint(0, m, (n,), generator=gen, device=dev)
+        if name == "all_equal":
+            gi.fill_(m - 1)
+        elif name == "long_segment":
+            gi[:3400] = m // 3
+            gi = gi[torch.randperm(n, generator=gen, device=dev)]
+        elif name == "out_of_range":
+            gi = torch.randint(-40, m + 40, (n,), generator=gen, device=dev)
+            far = torch.tensor([-2 ** 40, 2 ** 40, m, -1], device=dev)
+            gi[::7] = far[torch.arange(len(gi[::7]), device=dev) % 4]
+        g = torch.randn(n, F, generator=gen, device=dev) * torch.exp2(
+            torch.randint(-8, 8, (n, 1), generator=gen, device=dev).float())
+        yield f"edge {name} n={n} m={m} F={F}", (gi, g, m)
+
+
 def hold_scatter(cases, tag="hold_scatter"):
     """The ordered scatter on the card against its plain version on the
     CPU (bit for bit: the same order), against ``index_add_`` on the card
     (``SCATTER_RTOL``), and against itself (three calls bitwise equal).
-    Returns the largest |difference| from the CPU's plain version."""
+    Keys outside [0, m) are left out of the references (``index_add_``
+    refuses them). Returns the largest |difference| from the CPU's plain
+    version."""
     import torch
     from level_s2fm_tpu_torch.fields import hash_scatter as hs
     worst = 0.0
     for name, (gi, g, m) in cases.items():
+        keep = (gi >= 0) & (gi < m)
+        ki, kg = (gi, g) if bool(keep.all()) else (gi[keep], g[keep])
         runs = [hs.scatter_cuda(gi, g, m) for _ in range(3)]
-        atomic = hs.scatter_plain(gi, g, m)
-        mag = hs.scatter_plain(gi, g.abs(), m)
+        atomic = hs.scatter_plain(ki, kg, m)
+        mag = hs.scatter_plain(ki, kg.abs(), m)
         torch.cuda.synchronize()
-        cpu = hs.scatter_plain(gi.cpu(), g.cpu(), m)
+        cpu = hs.scatter_plain(ki.cpu(), kg.cpu(), m)
         repeat = all(torch.equal(runs[0], x) for x in runs[1:])
         err_cpu = float((runs[0].cpu() - cpu).abs().max())
         same_cpu = torch.equal(runs[0].cpu(), cpu)
         rel = float(((runs[0] - atomic).abs() / mag.clamp_min(1e-30)).max())
-        seg = torch.bincount(gi, minlength=m)
-        log(f"[{tag}] {name}: {gi.numel()} contributions into {m} rows x "
-            f"{g.shape[1]}, {int((seg > 0).sum())} rows hit, longest segment "
-            f"{int(seg.max())}; bitwise equal to the CPU's plain version="
+        seg = torch.bincount(ki, minlength=m)
+        log(f"[{tag}] {name}: {gi.numel()} contributions ({ki.numel()} in range) "
+            f"into {m} rows x {g.shape[1]}, {int((seg > 0).sum())} rows hit, longest "
+            f"segment {int(seg.max())}; bitwise equal to the CPU's plain version="
             f"{same_cpu} (max_abs_err {err_cpu:.3e}); against index_add_ on "
             f"the card {rel:.3e} of a row's sum of |contributions| (bar "
             f"{SCATTER_RTOL}); three calls bitwise equal={repeat}")
@@ -589,36 +627,99 @@ def hold_scatter(cases, tag="hold_scatter"):
     return worst
 
 
+def device_kernels(fn, calls=5, tries=5):
+    """{kernel: [launches a call, device ms a call]} of ``fn``'s device
+    work (kernels, memsets, copies), from a torch.profiler trace of
+    ``calls`` calls after one warm-up call. A trace that holds no device
+    event (seen on the card now and then) is taken again, up to ``tries``
+    times; then the check fails."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        out = {}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)
+                rec = out.setdefault(name.split("(")[0][:90], [0.0, 0.0])
+                rec[0] += 1 / calls
+                rec[1] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+        if out:
+            return out
+        log("[hold_scatter] the profiler saw no device event; tracing again")
+    raise AssertionError(f"torch.profiler saw no device event in {tries} traces")
+
+
+#: launches of the scatter the parent commit ran that no trace here makes:
+#: its segment-sum kernel (one launch a call)
+PARENT_KERNEL_LAUNCHES = 1
+
+
+def scatter_launches(gi, g, m):
+    """Device launches a call (torch.profiler) of the ordered scatter and
+    of the parent commit's scatter, whose cast, ``torch.sort`` and zeroed
+    output are traced here and whose own kernel adds
+    ``PARENT_KERNEL_LAUNCHES``; fails unless the trace shows the
+    scatter's kernels and it launches no more than the parent. Returns
+    (launches, the parent's, {kernel: [launches, ms]} of each)."""
+    import torch
+    from level_s2fm_tpu_torch.fields import hash_scatter as hs
+    ours = device_kernels(lambda: hs.scatter_cuda(gi, g, m))
+    parent = device_kernels(lambda: (torch.sort(gi.to(torch.int32), stable=True),
+                                     torch.zeros((m, g.shape[1]), device=g.device)))
+    for kernel in ("digit_histogram_kernel", "onesweep_pass_kernel", "segment_sum_kernel"):
+        assert any(k.startswith(kernel) for k in ours), (kernel, sorted(ours))
+    launches = round(sum(v[0] for v in ours.values()), 3)
+    parent_launches = round(sum(v[0] for v in parent.values()), 3) + PARENT_KERNEL_LAUNCHES
+    assert launches <= parent_launches, (launches, parent_launches)
+    return launches, parent_launches, ours, parent
+
+
 def time_scatter(gi, g, m):
-    """ms of the ordered scatter (sort + kernel), of its parts, of
-    index_add_ (plain) and of index_put_ with accumulate (library), and
-    its bound; returns the record's numbers."""
+    """ms of the ordered scatter, of its parts (torch.profiler: the
+    memset, the histogram, each sort pass, the sum) and its launches a
+    call beside the parent commit's; of ``torch.sort`` of the keys (the
+    parent's sort, a yardstick); of index_add_ (plain) and of index_put_
+    with accumulate (library), and its bound; returns the record's
+    numbers."""
     import torch
     from level_s2fm_tpu_torch import devtime
     from level_s2fm_tpu_torch.fields import hash_scatter as hs
     n, F = g.shape
     ms = devtime.time_ms(lambda: hs.scatter_cuda(gi, g, m), n=20)[0]
     sort_ms = devtime.time_ms(lambda: torch.sort(gi.to(torch.int32), stable=True), n=20)[0]
-    sk, perm = torch.sort(gi.to(torch.int32), stable=True)
-    kernel_ms = devtime.time_ms(lambda: hs.segment_sum(sk, perm, g, m), n=20)[0]
+    launches, parent_launches, parts, parent_parts = scatter_launches(gi, g, m)
     plain_ms = devtime.time_ms(lambda: hs.scatter_plain(gi, g, m), n=20)[0]
     library_ms = devtime.time_ms(lambda: torch.zeros(m, F, device=g.device).index_put_(
         (gi,), g, accumulate=True), n=20)[0]
     bound, by = devtime.bound_ms(n * 8 + n * F * 4 + m * F * 4, n * F)
-    log(f"[hold_scatter] main: ordered {ms:.4f} ms (sort {sort_ms:.4f}, kernel "
-        f"{kernel_ms:.4f}), index_add_ {plain_ms:.4f} ms, index_put_ "
-        f"accumulate {library_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-        f"{bound / ms:.1%} of it)")
+    table = lambda d: json.dumps({k: [round(a, 3), round(b, 6)] for k, (a, b) in d.items()})
+    log(f"[hold_scatter] main: ordered {ms:.4f} ms, {launches:g} launches a call; "
+        f"parts (launches, device ms a call): {table(parts)}; the parent's "
+        f"{parent_launches:g} launches a call (its cast + torch.sort stable "
+        f"{sort_ms:.4f} ms, its zeroed output, its kernel): {table(parent_parts)}; "
+        f"index_add_ {plain_ms:.4f} ms, index_put_ accumulate {library_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of it)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound, "bound_by": by, "sort_ms": sort_ms,
-            "kernel_ms": kernel_ms}
+            "bound_ms": bound, "bound_by": by}
 
 
 def phase_hold_scatter():
-    """``hold_scatter`` at the main path's shapes, then timed; returns the
-    kernel's record (its launches are filled in from the main paths)."""
+    """``hold_scatter`` at the main path's shapes and at the edge shapes,
+    then timed; returns the kernel's record (its launches are filled in
+    from the main paths)."""
     import torch
-    cases = scatter_inputs(torch.device("cuda"))
+    from level_s2fm_tpu_torch.fields import hash_scatter as hs
+    dev = torch.device("cuda")
+    cases = scatter_inputs(dev)
+    cases.update(scatter_edge_cases(dev, hs.sort_tile()))
     err = hold_scatter(cases)
     t = time_scatter(*cases["main"])
     del cases
@@ -2341,6 +2442,11 @@ def main(argv=None):
     scatter["max_abs_err"] = max(scatter["max_abs_err"], err)
     log(f"[hold_scatter] held at all {len(SCATTER_SEEN)} (n, m, F) shapes launched "
         f"on the main paths, with random keys: max_abs_err {err}")
+    (_, (gi, g, m)), = scatter_at_shapes([min(SCATTER_SEEN)], torch.device("cuda"))
+    launches, parent_launches, parts, _ = scatter_launches(gi, g, m)
+    log(f"[hold_scatter] smallest launched shape n={gi.numel()} m={m} F={g.shape[1]}: "
+        f"{launches:g} launches a call (the parent's: {parent_launches:g}, no fewer): "
+        + json.dumps({k: [round(a, 3), round(b, 6)] for k, (a, b) in parts.items()}))
     log(f"[done] {time.time() - t_start:.1f} s")
 
     print(_card_line())

@@ -9,10 +9,11 @@ JAX package's runs do.
 
 ``ordered_scatter_add(gi, g, m)`` computes the same sum in the CPU's
 order everywhere: for a CPU tensor it runs the plain version
-(``index_add_``); for a CUDA tensor it launches ``hs_segment_sum``
-(``csrc/hash_scatter.cu``) after a stable sort of the int32 keys, or
-raises. There is no fallback. The kernel replaces no TPU kernel: the JAX
-package scatters in XLA.
+(``index_add_``); for a CUDA tensor it launches ``hs_ordered_scatter``
+(``csrc/hash_scatter.cu``: a stable radix sort of the keys' own bits,
+written by hand, then a segment sum that adds each row in index order),
+or raises. There is no fallback. The kernels replace no TPU kernel: the
+JAX package scatters in XLA. Keys outside [0, m) touch no row.
 
 ``gather_rows`` (a row gather whose backward is the ordered scatter, and
 the scatter's backward the gather, so graphs built with
@@ -57,8 +58,12 @@ def scatter_plain(gi, g, m: int):
 def _lib():
     lib = kernels.load("hash_scatter")
     if not getattr(lib, "_hs_typed", False):
-        lib.hs_segment_sum.restype = _I
-        lib.hs_segment_sum.argtypes = [_P, _P, _P, _LL, _I, _I, _P, _P]
+        lib.hs_ordered_scatter.restype = _I
+        lib.hs_ordered_scatter.argtypes = [_P, _P, _LL, _I, _I, _P, _P, _P]
+        lib.hs_scratch_words.restype = _LL
+        lib.hs_scratch_words.argtypes = [_LL, _I]
+        lib.hs_sort_tile.restype = _I
+        lib.hs_sort_tile.argtypes = []
         lib.hs_supports_features.restype = _I
         lib.hs_supports_features.argtypes = [_I]
         lib._hs_typed = True
@@ -80,35 +85,33 @@ def check_inputs(gi, g, m: int):
     return n, F
 
 
+def sort_tile():
+    """Keys a block of a sort pass takes (the built kernel's tile)."""
+    return int(_lib().hs_sort_tile())
+
+
 def scatter_cuda(gi, g, m: int):
-    """The ordered sum [m, F] of CUDA tensors: a stable sort of the keys,
-    then ``segment_sum``."""
+    """The ordered sum [m, F] of CUDA tensors: one call of
+    ``hs_ordered_scatter`` (the state's memset, the digit histogram, one
+    launch per sort pass, the segment sum), with its scratch from
+    ``torch.empty``."""
     if gi.device.type != "cuda":
         raise ValueError("the CUDA scatter takes CUDA tensors")
-    check_inputs(gi, g, m)
-    sorted_keys, perm = torch.sort(gi.to(torch.int32), stable=True)
-    return segment_sum(sorted_keys, perm, g, m)
-
-
-def segment_sum(sorted_keys, perm, g, m: int):
-    """Launch ``hs_segment_sum``: rows [m, F] of ``g`` summed over the
-    segments of the stably sorted int32 keys, each in ascending index."""
-    n, F = g.shape
+    n, F = check_inputs(gi, g, m)
     if g.dtype != torch.float32:
         raise ValueError(f"the CUDA scatter takes float32 cotangents, got {g.dtype}")
-    if sorted_keys.dtype != torch.int32 or perm.dtype != torch.int64:
-        raise ValueError("sorted keys must be int32 and the permutation int64")
     lib = _lib()
     if not lib.hs_supports_features(F):
         raise ValueError(f"the CUDA scatter takes 1, 2, 4 or 8 features a row, got {F}")
-    g = g.contiguous()
-    out = torch.zeros((m, F), dtype=g.dtype, device=g.device)
+    gi, g = gi.contiguous(), g.contiguous()
     dev = g.device
+    out = torch.empty((m, F), dtype=g.dtype, device=dev)
+    scratch = torch.empty(lib.hs_scratch_words(n, m), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        st = lib.hs_segment_sum(sorted_keys.data_ptr(), perm.data_ptr(),
-                                g.data_ptr(), n, F, m, out.data_ptr(), stream)
-    kernels.check(st, "hs_segment_sum")
+        st = lib.hs_ordered_scatter(gi.data_ptr(), g.data_ptr(), n, F, m, out.data_ptr(),
+                                    scratch.data_ptr(), stream)
+    kernels.check(st, "hs_ordered_scatter")
     LAUNCHES["scatter"] += 1
     SHAPES[n, m, F] = SHAPES.get((n, m, F), 0) + 1
     return out

@@ -149,14 +149,23 @@ def test_init_phase_repeats():
 def test_kernel_matches_plain_version_on_gpu(gpu):
     """On the card: bit for bit the CPU's plain version, three calls
     bitwise equal, and within 1e-6 of a row's sum of |contributions| of
-    index_add_'s atomics."""
-    for n, m, F in ((200000, 50, 2), (300001, 700000, 1), (4096, 10, 4), (100, 3, 8)):
-        gi, g = _inputs(n, m, F, seed=n)
+    index_add_'s atomics; at random shapes and at the edge shapes of the
+    kernel's tile (keys outside [0, m) dropped from the references)."""
+    from test_torch_port_scatter_model import KERNEL, _case, edge_cases
+    tile = KERNEL["tile"]
+    assert hs.sort_tile() == tile    # the model's sizes are the built kernel's
+    cases = [_inputs(n, m, F, seed=n) + (m,)
+             for n, m, F in ((200000, 50, 2), (300001, 700000, 1), (4096, 10, 4), (100, 3, 8))]
+    cases += [_case(name, n, m, F, seed=i) + (m,)
+              for i, (name, n, m, F) in enumerate(edge_cases(tile))]
+    for gi, g, m in cases:
+        keep = (gi >= 0) & (gi < m)
         gi_c, g_c = torch.as_tensor(gi).cuda(), torch.as_tensor(g).cuda()
+        want = hs.scatter_plain(torch.as_tensor(gi[keep]), torch.as_tensor(g[keep]), m)
         runs = [hs.ordered_scatter_add(gi_c, g_c, m) for _ in range(3)]
-        want = hs.scatter_plain(torch.as_tensor(gi), torch.as_tensor(g), m)
-        assert torch.equal(runs[0].cpu(), want)
+        assert torch.equal(runs[0].cpu(), want), (len(gi), m, g.shape[1])
         assert all(torch.equal(runs[0], r) for r in runs[1:])
-        atomic = hs.scatter_plain(gi_c, g_c, m)
-        mag = hs.scatter_plain(gi_c, g_c.abs(), m)
+        ki, kg = gi_c[torch.as_tensor(keep).cuda()], g_c[torch.as_tensor(keep).cuda()]
+        atomic = hs.scatter_plain(ki, kg, m)
+        mag = hs.scatter_plain(ki, kg.abs(), m)
         assert float(((runs[0] - atomic).abs() / mag.clamp_min(1e-30)).max()) <= 1e-6
