@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from .. import kernels
+from ..utils import obs
 
 #: kernel launches since the last reset; incremented only where the
 #: kernel is launched
@@ -161,7 +162,8 @@ class RowGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (gi,) = ctx.saved_tensors
-        return OrderedScatter.apply(g, gi, ctx.m), None, None
+        with obs.span("hash_scatter.cotangent"):
+            return OrderedScatter.apply(g, gi, ctx.m), None, None
 
 
 def gather_rows(flat, gi, bf16: bool = False):

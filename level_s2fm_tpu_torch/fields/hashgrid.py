@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from . import hash_scatter
+from ..utils import obs
 
 # tcnn-compatible hashing primes (public constants of the NGP paper)
 _PRIMES = (1, 2654435761, 805459861)
@@ -172,6 +173,7 @@ def _corner_weights(frac: torch.Tensor):
     return wd, sgn
 
 
+@obs.traced("hashgrid.encode")
 def encode(table: torch.Tensor, x_unit: torch.Tensor,
            cfg: HashGridConfig) -> torch.Tensor:
     """table [L,T,F]; x_unit [...,3] in [0,1]^3 -> [..., L*F] features."""
@@ -186,6 +188,7 @@ def encode(table: torch.Tensor, x_unit: torch.Tensor,
     return out.reshape(*orig_shape, -1)
 
 
+@obs.traced("hashgrid.encode")
 def encode_with_grad(table: torch.Tensor, x_unit: torch.Tensor,
                      cfg: HashGridConfig):
     """Hash-encode positions AND the analytic spatial Jacobian in one

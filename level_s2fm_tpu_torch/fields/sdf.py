@@ -49,6 +49,7 @@ import torch
 
 from . import hashgrid, mlp
 from ..rendering import aabb as aabb_mod
+from ..utils import obs
 
 
 def _safe_r(xyz):
@@ -255,6 +256,7 @@ def _active_budget(frac: float, n: int) -> int:
     return max(int(frac * n), 1) if 0.0 < frac < 1.0 else 0
 
 
+@obs.traced("sdf.march")
 @torch.no_grad()
 def sphere_march(params, cfg: SDFConfig, ray0: torch.Tensor,
                  ray_dir: torch.Tensor, stop_count=None) -> SphereMarch:
@@ -338,6 +340,9 @@ def sphere_march(params, cfg: SDFConfig, ray0: torch.Tensor,
         unf_s = new_unf_s & order_ok
         unf_e = new_unf_e & order_ok
 
+    obs.count("march.calls")
+    obs.count("march.rays", BN)
+    obs.count("march.trips", n_exec)
     if n_exec == 0:
         track[0] = start0          # no step executed: the entry points
     contrib = torch.zeros(cfg.iters_max, dtype=torch.bool, device=dev)
@@ -378,6 +383,7 @@ def _reeval_track_compact(params, cfg: SDFConfig, track, K: int):
     return torch.where(idxs <= k_last[None], vals, last_vals)
 
 
+@obs.traced("sdf.reeval")
 def sphere_reeval(params, cfg: SDFConfig, m: SphereMarch,
                   ray0: torch.Tensor, ray_dir: torch.Tensor):
     """Differentiable re-evaluation of the SDF along a stored march track:
@@ -436,6 +442,7 @@ def march_samples(m: SphereMarch, ray0, ray_dir,
     return sample_pts[None]
 
 
+@obs.traced("sdf.tracing")
 def sphere_tracing(params, cfg: SDFConfig, ray0: torch.Tensor,
                    ray_dir: torch.Tensor, gen: Optional[torch.Generator] = None,
                    track_subsample: int = 4096,

@@ -35,6 +35,7 @@ from ..fields.hash_scatter import take_along_last
 from ..fields import sdf as sdf_mod
 from . import aabb as aabb_mod
 from . import fused_composite as fc
+from ..utils import obs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,6 +217,7 @@ def volsdf_sampling(sdf_params, sdf_cfg: sdf_mod.SDFConfig, cfg: RendererConfig,
                       stable=True).values
 
 
+@obs.traced("render")
 def render(sdf_params, sdf_cfg: sdf_mod.SDFConfig,
            rad_params, rad_cfg: radf.RadFConfig,
            cfg: RendererConfig, center, ray,

@@ -40,6 +40,7 @@ from ..geometry import lie, transforms as T
 from ..parallel import distributed as pdist
 from ..parallel import mesh as pmesh
 from ..rendering import renderer as ren_mod
+from ..utils import obs
 from . import losses as L
 from . import optim as optim_mod
 
@@ -77,6 +78,7 @@ def _detach_tree(tree):
     return [_detach_tree(v) for v in tree]
 
 
+@obs.traced("render_core")
 def render_core(params, cfgs: PhaseCfgs, gen: Optional[torch.Generator],
                 poses, intr, images, grid, tracing=None, occ=None,
                 dc_trace_frozen: bool = False, cam_mask=None, n_real=None,
@@ -209,6 +211,7 @@ def render_core(params, cfgs: PhaseCfgs, gen: Optional[torch.Generator],
     return out
 
 
+@obs.traced("optim.update")
 @torch.no_grad()
 def guarded_update(opt: optim_mod.PhaseAdam, grads: List[torch.Tensor]):
     """Apply an optimizer update in place, skipping the step when ANY
@@ -238,7 +241,8 @@ def descend(opt: optim_mod.PhaseAdam, total: torch.Tensor, sharded=False):
     (``sharded``: each rank's total is its part of the global loss) or
     replaced by rank 0's (a phase every rank runs in full), so that every
     rank makes the same update."""
-    grads = torch.autograd.grad(total, opt.leaves, allow_unused=True)
+    with obs.span("backward"):
+        grads = torch.autograd.grad(total, opt.leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(opt.leaves, grads)]
     if sharded:
@@ -336,6 +340,7 @@ class InitPhase:
         loss["DC_Loss"] = rc["DC_loss"]
         return loss, {"PSNR": rc["PSNR"]}
 
+    @obs.traced("step.init")
     def step(self, state, batch, gen, rays_idx=None) -> Dict[str, torch.Tensor]:
         """One optimization step in place; returns 0-dim metric tensors."""
         loss, metrics = self._losses(state["params"], batch, gen,
@@ -585,6 +590,7 @@ class BAPhase:
                                   if k != "reproj_error"}, self.weights)
         return total + torch.pow(10.0, w_re) * loss["reproj_error"]
 
+    @obs.traced("step.ba")
     def step(self, state, batch, gen, rays_idx=None, trace_cam=None):
         loss, metrics, xyzs_new = self._losses(state["params"], state["xyzs"],
                                                batch, gen, rays_idx, trace_cam)
@@ -641,6 +647,7 @@ class RefinePhase:
         }
         return loss, {"PSNR": rc["PSNR"]}
 
+    @obs.traced("step.refine")
     def step(self, state, batch, gen, rays_idx=None, trace_cam=None):
         loss, metrics = self._losses(state["params"], batch, gen, rays_idx,
                                      trace_cam)

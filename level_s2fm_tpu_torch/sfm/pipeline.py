@@ -28,7 +28,6 @@ which returns before its metrics row there, the view's row is written.
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -271,12 +270,10 @@ class LevelSfM:
         timers = row["stage_s"]
 
         def timed(name, fn):
-            with self.timers.track(name):
-                t0 = time.perf_counter()
+            with self.timers.track(name, into=timers):
                 out = fn()
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-                timers[name] = timers.get(name, 0.0) + time.perf_counter() - t0
             return out
 
         camera_new = self._make_camera(new_id)
